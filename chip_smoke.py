@@ -3,14 +3,24 @@
 
     python3 chip_smoke.py            # every phase, one card, exits 0 on success
 
-Builds the hand-written CUDA wavefront kernel from ``src/repro_torch/kernels/
-csrc/wavefront.cu`` with ``nvcc`` for ``sm_90a``, holds it against its plain
-torch version on the card, checks the port's main path (the paper's five-step
-subsequence query through ``repro_torch.retrieval``) against the port's numpy
-host backend, drives the main path at full size with the kernel's launch
-count held to the counted dispatches, and times the kernel at the main
-path's dispatch sizes.  Each phase prints one line; any failure raises and
-the script exits non-zero.  The last line is
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc/``
+(``wavefront.cu``, ``pairwise_l2.cu``) with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source started together, and holds each against its plain torch
+version on the card.  Then it drives the port's two paths:
+
+* the paper's five-step subsequence query through ``repro_torch.retrieval``,
+  checked against the port's numpy host backend and run at full size with
+  the wavefront kernel's launch count held to the counted dispatches;
+* embedding retrieval over smollm-360m hidden states at the model's full
+  widths (random weights from a seed): pooled windows indexed by the
+  ``embedding`` index kind, range and nearest queries, then the exact
+  all-pairs matrix of the probes against the database through
+  ``ops.pairwise_l2`` (the index itself launches no pairwise kernel, which
+  is checked); the range hits are held against that matrix and, at a cut
+  size, hits and counts against the numpy backend.
+
+Both kernels are timed at their paths' shapes.  Each phase prints one line;
+any failure raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.  Without a
@@ -70,22 +80,31 @@ def phase_facts(torch, build) -> dict:
     return facts
 
 
+KERNEL_SOURCES = ("wavefront", "pairwise_l2")
+
+
 def phase_build(build) -> dict:
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    build.load("wavefront")
-    info = build.BUILDS["wavefront"]
-    log("build", library=info.path.name, built=info.built,
-        nvcc_s=f"{info.seconds:.2f}", s=f"{time.perf_counter() - t0:.2f}",
-        flags=repr(" ".join(build.NVCC_FLAGS)))
-    entry = ""
-    for ln in info.log.splitlines():  # ptxas: registers per kernel
-        m = re.search(r"wavefront_(warp|block)_kernelILi(\d)E", ln)
-        if "Compiling entry" in ln and m:
-            entry = f"{m.group(1)}<{MODES[int(m.group(2))]}>"
-        elif "Used" in ln and entry:
-            print(f"[build] ptxas {entry}: {ln.split(':', 1)[1].strip()}",
-                  flush=True)
-    return {"seconds": info.seconds}
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(build.load, KERNEL_SOURCES))  # one nvcc each, at once
+    wall = time.perf_counter() - t0
+    for name in KERNEL_SOURCES:
+        info = build.BUILDS[name]
+        log("build", library=info.path.name, built=info.built,
+            nvcc_s=f"{info.seconds:.2f}", flags=repr(" ".join(
+                build.flags(name))))
+        entry = ""
+        for ln in info.log.splitlines():  # ptxas: registers per kernel
+            m = re.search(r"wavefront_(warp|block)_kernelILi(\d)E", ln)
+            if "Compiling entry" in ln:
+                entry = (f"{m.group(1)}<{MODES[int(m.group(2))]}>" if m
+                         else name if "pairwise_l2_kernel" in ln else "")
+            elif "Used" in ln and entry:
+                print(f"[build] ptxas {entry}: "
+                      f"{ln.split(':', 1)[1].strip()}", flush=True)
+    log("build-done", s=f"{wall:.2f}")
+    return {"seconds": wall}
 
 
 # -- kernel operands ----------------------------------------------------------
@@ -501,6 +520,263 @@ def phase_timing(torch, wf, registry, rng, dev, sizes) -> list:
     return rows_out
 
 
+# -- phase 3c: pairwise_l2 kernel against its plain version --------------------
+
+def l2_sq_bound(x, y):
+    """Worst-case f32 gap between two evaluations of the norm-and-dot
+    formula on squared distances: (4d + 6) 2^-24 (|x|^2 + |y|^2)."""
+    d = x.shape[1]
+    return (4 * d + 6) * 2.0 ** -24 * (
+        (x.double() ** 2).sum(1)[:, None] + (y.double() ** 2).sum(1)[None, :])
+
+
+def compare_l2(torch, pl2, x, y, rows=None):
+    """(largest |dD^2| / bound, largest |dD|) of the kernel against the
+    plain version; ``rows`` limits the plain version to a row subset."""
+    got = pl2.pairwise_l2_cuda(x, y)
+    if rows is not None:
+        got, x = got[rows], x[rows]
+    want = pl2.pairwise_l2_torch(x, y)
+    torch.cuda.synchronize()
+    if tuple(got.shape) != (x.shape[0], y.shape[0]):
+        raise AssertionError(f"pairwise_l2: shape {tuple(got.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("pairwise_l2: kernel produced inf/NaN")
+    ratio = float(((got.double() ** 2 - want.double() ** 2).abs()
+                   / l2_sq_bound(x, y)).max())
+    if ratio > 1.0:
+        raise AssertionError(f"pairwise_l2 {tuple(got.shape)}: |dD^2| is "
+                             f"{ratio:.3f} x its bound")
+    return ratio, float((got - want).abs().max())
+
+
+def phase_l2_parity(torch, pl2, dev) -> float:
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    cases = []
+    # the reference's kernel-test shapes, ragged edges, d = 1 and d = 961
+    for M, N, d in ((1, 1, 3), (16, 16, 8), (37, 51, 19), (128, 128, 64),
+                    (130, 5, 33), (65, 67, 1), (100, 70, 961)):
+        cases.append((randn(M, d), randn(N, d), None))
+    # the embedding case: unit rows, exact and near (1e-4) duplicates
+    x, y = randn(1000, 960), randn(3000, 960)
+    y[:500] = x[:500]
+    y[500:1000] = x[500:1000] + 1e-4 * randn(500, 960)
+    x /= x.norm(dim=1, keepdim=True)
+    y /= y.norm(dim=1, keepdim=True)
+    cases.append((x, y, None))
+    # M * N > 2^31: 64-bit output offsets; rows straddling the 2^31 mark
+    M, N = 65600, 32768
+    rows = torch.tensor([0, 1, 65535, 65536, 65537, 65599], device=dev)
+    cases.append((randn(M, 8), randn(N, 8), rows))
+    worst_ratio = worst_abs = 0.0
+    for x, y, rows in cases:
+        ratio, err = compare_l2(torch, pl2, x, y, rows)
+        worst_ratio, worst_abs = max(worst_ratio, ratio), max(worst_abs, err)
+    log("l2-kernel-vs-plain", cases=len(cases),
+        max_sq_err_over_bound=f"{worst_ratio:.4f}", max_abs_err=worst_abs,
+        tol="|dD^2| <= (4d+6) 2^-24 (|x|^2+|y|^2)",
+        s=f"{time.perf_counter() - t0:.2f}")
+    return worst_abs
+
+
+# -- phase 6: embedding retrieval at smollm-360m's full widths ---------------
+
+def duplicate_docs(corpus):
+    """Ids of documents that are planted near-copies of an earlier one
+    (more than 90 % equal tokens)."""
+    dups = []
+    for j in range(1, len(corpus)):
+        same = (corpus[:j] == corpus[j]).mean(axis=1)
+        if same.max() > 0.9:
+            dups.append((j, int(same.argmax())))
+    return dups
+
+
+#: windows of the embedding run's check against the numpy backend (its
+#: host build costs seconds there; the full database's would cost minutes)
+EMBED_PARITY_WINDOWS = 1024
+
+
+def phase_embedding(torch, pl2, args, dev) -> dict:
+    import numpy as np
+    from repro_torch.core.embedding_retrieval import embed_windows
+    from repro_torch.data.synthetic import token_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry as models
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.retrieval import RetrievalConfig, Retriever
+    t_phase = time.perf_counter()
+    cfg, mod = models.get("smollm-360m")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    defs = mod.param_defs(cfg)
+    model = mod.build(cfg, init_params(defs, g, torch.bfloat16, dev),
+                      device=dev)
+    torch.cuda.synchronize()
+    log("embed-model", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x"
+        f"{cfg.head_dim}", d_ff=cfg.d_ff, vocab=cfg.vocab,
+        params=param_count(defs), dtype="bfloat16",
+        init_s=f"{time.perf_counter() - t0:.2f}")
+
+    window, doc_len = 16, 256
+    corpus = token_corpus(args.embed_docs, doc_len, cfg.vocab, seed=0,
+                          dup_frac=0.05)
+    embed_windows(mod, model, cfg, list(corpus[:8]), window, device=dev)
+    torch.cuda.synchronize()  # warm-up: the product kernels' first calls
+    pl2.LAUNCHES = 0  # the path's launches: counted from here
+    t0 = time.perf_counter()
+    vecs, meta = embed_windows(mod, model, cfg, list(corpus), window,
+                               device=dev)
+    embed_s = time.perf_counter() - t0
+    if vecs.shape != (args.embed_docs * doc_len // window, cfg.d_model) \
+            or not np.isfinite(vecs).all():
+        raise AssertionError(f"embed_windows: {vecs.shape}, finite="
+                             f"{bool(np.isfinite(vecs).all())}")
+    if np.abs(np.linalg.norm(vecs, axis=1) - 1).max() > 1e-5:
+        raise AssertionError("embed_windows: vectors are not unit length")
+    log("embed-windows", docs=args.embed_docs, tokens=corpus.size,
+        windows=len(vecs), s=f"{embed_s:.3f}",
+        tokens_per_s=f"{corpus.size / embed_s:.0f}")
+
+    # probes: 64 windows of planted near-duplicate documents
+    dups = duplicate_docs(corpus)
+    if not dups:
+        raise ValueError("no planted duplicate documents: --embed-docs "
+                         "must be at least 20")
+    per = -(-64 // len(dups))
+    probe_ids = [dst * (doc_len // window) + w for dst, _ in dups
+                 for w in range(per)][:64]
+    twin_of = {dst * (doc_len // window) + w: src * (doc_len // window) + w
+               for dst, src in dups for w in range(per)}
+    probes = vecs[probe_ids]
+
+    cfg_ix = RetrievalConfig("euclidean", index="embedding", eps_prime=0.02,
+                             num_max=5, tight_bounds=True, device=str(dev))
+    t0 = time.perf_counter()
+    r = Retriever.build(cfg_ix, vecs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    st = r.eval_stats()
+    print("[embed] the database size is cut by the host: the reference "
+          "net's Python plan code costs microseconds per evaluation and "
+          "build evaluations grow about as n^1.8", flush=True)
+    log("embed-build", windows=len(vecs), build_s=f"{build_s:.2f}",
+        build_evals=st["build"], build_dispatches=st["build_dispatches"])
+    eps = 0.5
+    t0 = time.perf_counter()
+    rs = r.batch(probes).range(eps)
+    range_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    near = r.batch(probes).nearest(2.0, tol=1e-3)
+    nearest_s = time.perf_counter() - t0
+    for i, pid in enumerate(probe_ids):
+        if pid not in rs.hits[i]:
+            raise AssertionError(f"range: probe {pid} misses itself")
+        if near.distances[i] is None or near.distances[i] > 1e-3:
+            raise AssertionError(f"nearest: probe {pid} got "
+                                 f"{near.distances[i]}")
+    twins = sum(twin_of[pid] in rs.hits[i] for i, pid in enumerate(probe_ids))
+    # the index's Euclidean runs as elementwise torch ops: no pairwise_l2
+    if pl2.LAUNCHES != 0:
+        raise AssertionError(f"pairwise_l2: {pl2.LAUNCHES} launches inside "
+                             "the embedding index, expected none")
+    # the path's exact step: every probe against every window, all pairs
+    x = torch.as_tensor(probes, device=dev)
+    y = torch.as_tensor(vecs, device=dev)
+    D = ops.pairwise_l2(x, y)
+    torch.cuda.synchronize()
+    launches = pl2.LAUNCHES  # the path ends here
+    if launches != 1:
+        raise AssertionError(f"pairwise_l2: {launches} launches for the one "
+                             "all-pairs call of the embedding path")
+    # the index's range hits agree with it on every pair outside the band
+    band = l2_sq_bound(x, y)
+    d2 = D.double() ** 2
+    brute = (d2 <= eps * eps).cpu().numpy()
+    outside = ((d2 - eps * eps).abs() > band).cpu().numpy()
+    got = np.zeros_like(brute)
+    for i, hits in enumerate(rs.hits):
+        got[i, hits] = True
+    if (got != brute)[outside].any():
+        raise AssertionError(
+            f"range hits differ from the pairwise_l2 matrix on "
+            f"{int((got != brute)[outside].sum())} pairs outside the band")
+    log("embed-queries", probes=len(probe_ids), dup_docs=len(dups),
+        range_eps=eps, range_hits=sum(len(h) for h in rs.hits),
+        twins_found=twins, range_s=f"{range_s:.3f}",
+        range_evals=rs.stats["query"], range_dispatches=rs.stats["dispatches"],
+        nearest_s=f"{nearest_s:.3f}", nearest_evals=near.stats["query"],
+        nearest_dispatches=near.stats["dispatches"],
+        brute_pairs=int(brute.size), band_pairs=int((~outside).sum()),
+        index_pairwise_l2_launches=0, all_pairs_launches=launches)
+
+    # at a cut size: hits and counts equal to the numpy host backend
+    t0 = time.perf_counter()
+    n_cut = min(EMBED_PARITY_WINDOWS, len(vecs))
+    cut_probes = [p for p in probe_ids if p < n_cut][:16] or list(range(16))
+    out = {}
+    for be in ("numpy", "kernel"):
+        rb = Retriever.build(cfg_ix.replace(backend=be), vecs[:n_cut])
+        a = rb.batch(vecs[cut_probes]).range(eps)
+        b = rb.batch(vecs[cut_probes]).nearest(2.0, tol=1e-3)
+        out[be] = (a.hits, b.hits, a.stats, b.stats, rb.eval_stats())
+    if out["numpy"][:2] != out["kernel"][:2]:
+        raise AssertionError("embedding: hits differ kernel vs numpy")
+    if out["numpy"][2:] != out["kernel"][2:]:
+        raise AssertionError(f"embedding: counts differ {out['kernel'][2:]}"
+                             f" vs {out['numpy'][2:]}")
+    log("embed-parity", windows=n_cut, probes=len(cut_probes),
+        stats=json.dumps(out["kernel"][4]), s=f"{time.perf_counter() - t0:.2f}")
+    log("embed-done", s=f"{time.perf_counter() - t_phase:.2f}")
+    return {"launches": launches, "x": x, "y": y,
+            "row": dict(embed_s=embed_s, build_s=build_s, range_s=range_s,
+                        nearest_s=nearest_s)}
+
+
+# -- phase 6b: pairwise_l2 timing ---------------------------------------------
+
+def l2_bound(M, N, d):
+    """(bound_ms, bound_by): the f32 operations (2MNd for the products,
+    2(M+N)d for the norms, one multiply and one add per element, 5MN for
+    the epilogue) over the f32 peak against x and y read once and D
+    written once over HBM rate."""
+    flops = 2.0 * M * N * d + 2.0 * (M + N) * d + 5.0 * M * N
+    nbytes = 4.0 * ((M + N) * d + M * N)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_l2_timing(torch, pl2, dev, main_x, main_y) -> list:
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = [("main path: probes x windows", main_x, main_y),
+              ("8192 x 8192", torch.randn(8192, 960, generator=g, device=dev),
+               torch.randn(8192, 960, generator=g, device=dev))]
+    rows = []
+    for what, x, y in shapes:
+        M, N, d = x.shape[0], y.shape[0], x.shape[1]
+        ms = time_ms(torch, lambda: pl2.pairwise_l2_cuda(x, y))
+        plain = time_ms(torch, lambda: pl2.pairwise_l2_torch(x, y))
+        lib = time_ms(torch, lambda: torch.cdist(
+            x, y, compute_mode="use_mm_for_euclid_dist"))
+        b_ms, by = l2_bound(M, N, d)
+        log("l2-timing", what=repr(what), shape=f"{M}x{N}x{d}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=by, share=f"{b_ms / ms:.3f}",
+            tflops=f"{2.0 * M * N * d / ms / 1e9:.2f}")
+        rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=by))
+    log("l2-timing-done", s=f"{time.perf_counter() - t0:.2f}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 20,000 windows build in 160-210 s on the H100 host; step 4 at lam=40
@@ -511,6 +787,10 @@ def main(argv=None) -> int:
                     help="queries of the lam=40 steps 1-4 run")
     ap.add_argument("--windows-b", type=int, default=3000,
                     help="windows of the quickstart three-query run")
+    # 640 documents of 256 tokens give 10,240 windows of 16 tokens; the
+    # index build over them is host-bound (about n^1.8 evaluations)
+    ap.add_argument("--embed-docs", type=int, default=640,
+                    help="documents of the smollm-360m embedding run")
     args = ap.parse_args(argv)
 
     import torch
@@ -521,6 +801,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.kernels import build, registry, dispatch
+        from repro_torch.kernels import pairwise_l2 as pl2
         from repro_torch.kernels import wavefront as wf
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run "
@@ -536,9 +817,12 @@ def main(argv=None) -> int:
     facts = phase_facts(torch, build)
     phase_build(build)
     max_err = phase_kernel_parity(torch, wf, registry, rng, dev)
+    l2_err = phase_l2_parity(torch, pl2, dev)
     phase_main_parity(torch, wf, rng, dev)
     full = phase_full(torch, wf, dispatch, args, dev)
+    emb = phase_embedding(torch, pl2, args, dev)
     timing = phase_timing(torch, wf, registry, rng, dev, full["sizes"])
+    l2_rows = phase_l2_timing(torch, pl2, dev, emb["x"], emb["y"])
 
     main_row = timing[1]  # the main path's largest dispatch
     kernels = [{
@@ -548,7 +832,12 @@ def main(argv=None) -> int:
         "launches": full["launches"], "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "pairwise_l2", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        "replaces": "src/repro/kernels/pairwise_l2.py:47",
+        "launches": emb["launches"], "max_abs_err": l2_err,
+        **l2_rows[0]}]
     log("total", s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(facts["smi"])

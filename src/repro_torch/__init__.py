@@ -3,7 +3,10 @@ framework.
 
 A package beside the JAX reference ``repro``: same module layout, torch
 tensors with an explicit ``device`` (the card by default), and the
-wavefront alignment DP as a hand-written CUDA kernel
-(``kernels/csrc/wavefront.cu``).  The entry point is
-``repro_torch.retrieval``: ``Retriever.build(RetrievalConfig(...), data)``.
+reference's TPU kernels as hand-written CUDA kernels: the wavefront
+alignment DP (``kernels/csrc/wavefront.cu``) and the pairwise Euclidean
+matrix (``kernels/csrc/pairwise_l2.cu``).  The entry point is
+``repro_torch.retrieval``: ``Retriever.build(RetrievalConfig(...), data)``;
+``models`` and ``core/embedding_retrieval.py`` turn a dense transformer's
+hidden states into vectors for its ``embedding`` index kind.
 """

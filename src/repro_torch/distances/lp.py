@@ -14,7 +14,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.distances import base
 from repro_torch.distances._wavefront import (
-    default_lengths, matrixify, prepare, sum_last)
+    default_lengths, matrixify, prepare)
 
 
 def euclidean_batch(xs, ys, len_x=None, len_y=None, device=None):
@@ -23,7 +23,7 @@ def euclidean_batch(xs, ys, len_x=None, len_y=None, device=None):
     mask = (torch.arange(L, device=xs.device)[None, :]
             < lx[:, None]).to(torch.float32)
     diff = xs - ys
-    d2 = (sum_last(diff * diff) * mask).sum(dim=-1)
+    d2 = (torch.sum(diff * diff, dim=-1) * mask).sum(dim=-1)
     return torch.sqrt(torch.clamp_min(d2, 0.0))
 
 

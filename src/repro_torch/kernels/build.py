@@ -18,19 +18,30 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch")
 
 #: route (b): plain C entry points for sm_90a.  No --use_fast_math (IEEE
-#: sqrtf), and no fused multiply-add, so float modes round as the plain
-#: torch version and the numpy host wavefront do.  ``-Xptxas -v`` reports
-#: registers, shared memory and spills into the build log.
+#: sqrtf), and no fused multiply-add, so the wavefront's float modes round
+#: as the plain torch version and the numpy host wavefront do.  ``-Xptxas
+#: -v`` reports registers, shared memory and spills into the build log.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+
+#: sources held to their plain version by a tolerance, not bit-equality:
+#: they may fuse multiply-adds (``--fmad=false`` halves the f32 rate)
+FMA_SOURCES = frozenset({"pairwise_l2"})
+
+
+def flags(name: str) -> List[str]:
+    """The nvcc flags ``csrc/<name>.cu`` is built with."""
+    if name in FMA_SOURCES:
+        return [f for f in NVCC_FLAGS if f != "--fmad=false"]
+    return list(NVCC_FLAGS)
 
 
 @dataclasses.dataclass
@@ -68,15 +79,16 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
+    nvcc_flags = flags(name)
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(nvcc_flags).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}-{digest}.so"
     if so.exists():
         info = BuildInfo(so, 0.0, False, "")
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc(), *nvcc_flags, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

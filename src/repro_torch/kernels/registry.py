@@ -124,7 +124,7 @@ class KernelSpec:
             diff = xs.to(torch.float32) - ys.to(torch.float32)
             d2 = diff * diff
             if d2.ndim == 3:
-                d2 = sum_last(d2)
+                d2 = torch.sum(d2, dim=-1)
             d = torch.sqrt(torch.clamp_min((d2 * mask).sum(dim=1), 0.0))
         hit = d <= eps_v
         return KernelOut(torch.where(hit, d, BIG), hit,

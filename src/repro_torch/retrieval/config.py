@@ -13,7 +13,8 @@ distance       registry name (or ``Distance`` instance) — §4 consistency /
 lam, lambda0   subsequence-matching scope (§3.2).  ``lam=None`` = plain
                window-level retrieval over the database rows; ``lam`` set =
                the full 5-step matching pipeline
-index          index kind from the retrieval registry (``refnet|linear``)
+index          index kind from the retrieval registry
+               (``refnet|linear|embedding``)
 execution      ``host`` (sequential frontier drive, classic counts) or
                ``batched`` (frontier engine, one dispatch per merged round)
 backend        counter backend: ``numpy | torch | kernel`` (default
@@ -121,6 +122,11 @@ class RetrievalConfig:
                     f"lambda0 must satisfy 0 <= lambda0 < lam/2 "
                     f"(= {self.lam // 2}); got {self.lambda0}")
             dist_base.require_consistent(dist)   # segmentation filter, Def. 1
+            if self.index == "embedding":
+                raise ValueError(
+                    "index 'embedding' serves fixed-length pooled vectors; "
+                    "it cannot back the subsequence-matching pipeline "
+                    "(set lam=None)")
         if spec.requires_metric:
             dist_base.require_metric(dist)       # indexed path, §5
 

@@ -282,7 +282,8 @@ class Retriever:
         """Build the configured stack over ``data``.
 
         ``data`` is a sequence list for the matching pipeline (``lam``
-        set), or a ``(N, l[, d])`` window array for window-level retrieval.
+        set), a ``(N, l[, d])`` window array for window-level retrieval,
+        or ``(N, d)`` pooled vectors for ``index='embedding'``.
         Runs on ``config.device``; asking for the card on a machine without
         one raises ``RuntimeError``.
         """
@@ -298,7 +299,7 @@ class Retriever:
     # -- fluent entry points -------------------------------------------------
 
     def query(self, Q) -> QueryPlan:
-        """Plan a single query (sequence or window)."""
+        """Plan a single query (sequence, window, or embedding vector)."""
         return QueryPlan(self, [np.asarray(Q)], is_batch=False)
 
     def batch(self, queries) -> QueryPlan:

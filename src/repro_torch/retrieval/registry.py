@@ -11,9 +11,9 @@ the distance — from *how* — the index):
   the declarative facts the facade needs (does it require metricity, does
   it support the cohort bulk loader, which config fields map onto its
   constructor, how are database rows / query rows shaped).  The built-in
-  kinds ported so far (``refnet``, ``linear``) register themselves here;
-  ``@register_index("mykind")`` adds new ones.  The reference's other
-  kinds (``covertree``, ``mv``, ``embedding``) are not ported yet and
+  kinds ported so far (``refnet``, ``linear``, ``embedding``) register
+  themselves here; ``@register_index("mykind")`` adds new ones.  The
+  reference's other kinds (``covertree``, ``mv``) are not ported yet and
   raise ``NotImplementedError`` when named.
 
 Factories import the core classes lazily so this module stays import-cycle
@@ -121,7 +121,6 @@ def unregister_index(name: str) -> None:
 UNPORTED_INDEXES = {
     "covertree": "ROADMAP.md Queue 1: other index kinds",
     "mv": "ROADMAP.md Queue 1: other index kinds",
-    "embedding": "ROADMAP.md Queue 1: LM/embedding stack",
 }
 
 
@@ -158,3 +157,28 @@ def _make_refnet(dist, data, *, counter=None, **kw):
 def _make_linear(dist, data, *, counter=None, **kw):
     from repro_torch.core.matching import LinearScanIndex
     return LinearScanIndex(dist, data, counter=counter, **kw)
+
+
+def _embed_data(vectors) -> np.ndarray:
+    """(N, d) pooled vectors -> (N, 1, d) length-1 sequences so the registry
+    distances apply (see ``core/embedding_retrieval.py``)."""
+    vectors = np.asarray(vectors)
+    if vectors.ndim != 2:
+        raise ValueError(
+            f"embedding index expects (N, d) vectors; got {vectors.shape}")
+    return vectors[:, None, :]
+
+
+def _embed_query(vec) -> np.ndarray:
+    vec = np.asarray(vec)
+    if vec.ndim == 1:
+        return vec[None, :]
+    return vec
+
+
+@register_index("embedding", requires_metric=True, bulk=True,
+                tuning=_refnet_tuning,
+                prepare_data=_embed_data, prepare_query=_embed_query)
+def _make_embedding(dist, data, *, counter=None, **kw):
+    from repro_torch.core.refnet import ReferenceNet
+    return ReferenceNet(dist, data, counter=counter, **kw)

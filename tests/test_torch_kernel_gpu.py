@@ -1,5 +1,5 @@
-"""The hand-written CUDA wavefront kernel against its plain torch version,
-on the card (skipped without one).
+"""The hand-written CUDA kernels (wavefront, pairwise L2) against their
+plain torch versions, on the card (skipped without one).
 
 Imports only the port, so it runs on a machine without JAX:
 
@@ -8,7 +8,9 @@ Imports only the port, so it runs on a machine without JAX:
 Tolerance: Levenshtein distances bit-equal; float modes ``rtol = atol =
 1e-5`` (the two versions run the same f32 operations in the same order;
 the plain version's run as separate CUDA kernels); hit and prune masks
-equal.
+equal.  Pairwise L2: squared distances within ``(4d + 6) 2^-24 (|x|^2 +
+|y|^2)`` (two evaluations of the norm-and-dot formula in other summation
+orders; see ``test_torch_pairwise_l2.py``).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import pairwise_l2 as pl2  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels import wavefront as wf  # noqa: E402
 
@@ -104,3 +107,45 @@ def test_counted_dispatches_are_kernel_launches(cuda_device):
     st = r.eval_stats()
     assert rs.hits
     assert wf.LAUNCHES - before == st["build_dispatches"] + st["dispatches"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,d", [(1, 1, 3), (37, 51, 19), (130, 5, 33),
+                                   (65, 67, 1), (70, 3, 961),
+                                   (200, 300, 960)])
+def test_pairwise_l2_kernel_matches_plain_version(cuda_device, M, N, d):
+    rng = np.random.default_rng(M + N + d)
+    x = torch.as_tensor(rng.normal(size=(M, d)).astype(np.float32),
+                        device=cuda_device)
+    y = torch.as_tensor(rng.normal(size=(N, d)).astype(np.float32),
+                        device=cuda_device)
+    y[:min(M, N) // 2] = x[:min(M, N) // 2]  # exact twins: D = 0
+    before = pl2.LAUNCHES
+    got = pl2.pairwise_l2(x, y)
+    want = pl2.pairwise_l2_torch(x, y)
+    torch.cuda.synchronize()
+    assert pl2.LAUNCHES == before + 1
+    assert got.shape == (M, N) and torch.isfinite(got).all()
+    bound = (4 * d + 6) * 2.0 ** -24 * ((x * x).sum(1)[:, None]
+                                         + (y * y).sum(1)[None, :])
+    assert ((got.double() ** 2 - want.double() ** 2).abs()
+            <= bound.double()).all()
+
+
+@pytest.mark.gpu
+def test_pairwise_l2_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    x = torch.zeros((4, 6), device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        pl2.pairwise_l2_cuda(x.double(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        pl2.pairwise_l2_cuda(x, torch.zeros((6, 4), device=cuda_device).T)
+    with pytest.raises(ValueError, match="widths"):
+        pl2.pairwise_l2_cuda(x, x[:, :5].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        pl2.pairwise_l2_cuda(x[0], x)
+    with pytest.raises(ValueError, match="expected cuda"):
+        pl2.pairwise_l2_cuda(x, x.cpu())
+    before = pl2.LAUNCHES
+    assert pl2.pairwise_l2_cuda(x[:0], x).shape == (0, 4)
+    assert pl2.LAUNCHES == before

@@ -210,7 +210,7 @@ def test_config_round_trips_and_unported_features_raise():
             RetrievalConfig.from_dict({"distance": "erp", field: None})
     with pytest.raises(NotImplementedError, match="elastic fleet"):
         RetrievalConfig("erp", execution="fleet")
-    for kind in ("covertree", "mv", "embedding"):
+    for kind in ("covertree", "mv"):
         with pytest.raises(NotImplementedError, match="not ported"):
             RetrievalConfig("erp", index=kind)
     with pytest.raises(NotImplementedError, match="envelope"):
