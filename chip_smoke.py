@@ -19,8 +19,13 @@ version on the card.  Then it drives the port's two paths:
   is checked); the range hits are held against that matrix and, at a cut
   size, hits and counts against the numpy backend.
 
-Both kernels are timed at their paths' shapes.  Each phase prints one line;
-any failure raises and the script exits non-zero.  The last line is
+The wavefront kernel takes each dispatch's rows as they are (the run fails
+if the reference's padded layout is built on the card path), and the
+pairwise kernel runs its products as 3xTF32 on the tensor cores, held to
+the plain version within a derived bound.  Both kernels are timed at their
+paths' shapes, with their registers, shared memory and spills.  Each phase
+prints one line; any failure raises and the script exits non-zero.  The
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.  Without a
@@ -83,6 +88,22 @@ def phase_facts(torch, build) -> dict:
 KERNEL_SOURCES = ("wavefront", "pairwise_l2")
 
 
+def kernel_name(ptxas_line: str) -> str:
+    """A short name for a kernel that ptxas names in mangled form:
+    ``row<lev,24>``, ``block<erp>``, ``pairwise_l2<wg=2,n=128,tma>``."""
+    m = re.search(r"wavefront_row_kernelILi(\d)ELi(\d+)E", ptxas_line)
+    if m:
+        return f"row<{MODES[int(m.group(1))]},{m.group(2)}>"
+    m = re.search(r"wavefront_block_kernelILi(\d)E", ptxas_line)
+    if m:
+        return f"block<{MODES[int(m.group(1))]}>"
+    m = re.search(r"pairwise_l2_kernelILi(\d)ELi(\d+)ELb(\d)E", ptxas_line)
+    if m:
+        return (f"pairwise_l2<wg={m.group(1)},n={m.group(2)},"
+                f"{'tma' if m.group(3) == '1' else 'plain'}>")
+    return "?"
+
+
 def phase_build(build) -> dict:
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
@@ -94,23 +115,28 @@ def phase_build(build) -> dict:
         log("build", library=info.path.name, built=info.built,
             nvcc_s=f"{info.seconds:.2f}", flags=repr(" ".join(
                 build.flags(name))))
-        entry = ""
-        for ln in info.log.splitlines():  # ptxas: registers per kernel
-            m = re.search(r"wavefront_(warp|block)_kernelILi(\d)E", ln)
+        entry, spill = "", ""
+        for ln in info.log.splitlines():  # ptxas: registers, smem, spills
             if "Compiling entry" in ln:
-                entry = (f"{m.group(1)}<{MODES[int(m.group(2))]}>" if m
-                         else name if "pairwise_l2_kernel" in ln else "")
+                entry = kernel_name(ln)
+            elif "spill stores" in ln:
+                spill = ln.strip()
             elif "Used" in ln and entry:
-                print(f"[build] ptxas {entry}: "
-                      f"{ln.split(':', 1)[1].strip()}", flush=True)
+                print(f"[build] ptxas {entry}: {ln.split(':', 1)[1].strip()};"
+                      f" {spill}", flush=True)
+            elif "C7514" in ln:
+                print(f"[build] ptxas warning (wgmma serialized): "
+                      f"{kernel_name(ln)}", flush=True)
     log("build-done", s=f"{wall:.2f}")
     return {"seconds": wall}
 
 
 # -- kernel operands ----------------------------------------------------------
 
-def make_rows(rng, mode, B, lx_range, ly_range, d, *, scale=1.0):
-    """Ragged rows: tokens for lev, random-walk series otherwise."""
+def make_rows(rng, mode, B, lx_range, ly_range, d, *, scale=1.0,
+              zero_pad=True):
+    """Ragged rows: tokens for lev, random-walk series otherwise; past each
+    row's lengths zeros (``zero_pad``) or seeded non-zero content."""
     import numpy as np
     lx = rng.integers(lx_range[0], lx_range[1] + 1, B)
     ly = rng.integers(ly_range[0], ly_range[1] + 1, B)
@@ -126,52 +152,88 @@ def make_rows(rng, mode, B, lx_range, ly_range, d, *, scale=1.0):
               * scale).astype(np.float32)
         ys = (xs[:, :1] + np.cumsum(rng.normal(scale=0.3, size=(B, Ly, d)),
                                     1) * scale).astype(np.float32)
-    for i in range(B):
-        xs[i, lx[i]:] = 0
-        ys[i, ly[i]:] = 0
+    if zero_pad:
+        for i in range(B):
+            xs[i, lx[i]:] = 0
+            ys[i, ly[i]:] = 0
     return xs, ys, lx, ly
 
 
-def operands(spec, xs, ys, lx, ly, dev):
+def operands(mode, xs, ys, lx, ly, dev):
+    """The kernel's operands as a dispatch hands them: the rows as they are
+    (f32 tokens or f32 series ``(B, L, d)``), lengths ``(B, 2)`` int32."""
+    import numpy as np
     import torch
-    ops, (Lx, Ly) = spec.layout(torch.as_tensor(xs, device=dev),
-                                torch.as_tensor(ys, device=dev),
-                                torch.as_tensor(lx, device=dev),
-                                torch.as_tensor(ly, device=dev))
-    return ops, Lx, Ly
+    return [torch.as_tensor(xs, device=dev, dtype=torch.float32),
+            torch.as_tensor(ys, device=dev, dtype=torch.float32),
+            torch.as_tensor(np.stack([lx, ly], 1).astype(np.int32),
+                            device=dev)]
 
 
-def bound(mode, xs, ys, lx, ly):
-    """(bound_ms, bound_by): the larger of the bytes the alignment function
-    must move over HBM rate and the f32 operations its cells need over the
-    f32 peak.  Bytes: x and y at the dispatch's widths in their own dtype
-    (int32 tokens for lev), the two lengths (int32), eps (f32), each read
-    once, and dist (f32), hit and pruned (bool) written once.  The padded
-    operand layout the kernel reads today (reversed, zero-padded y; borders
-    that are constants, ``0..L`` or cumsums of the gaps) is derived from
-    these, so it is not counted."""
+#: H100 SXM: operations that are not fused multiply-adds (adds, mins,
+#: compares, abs) issue at most once per lane per clock: 132 SMs x 128 lanes
+#: x 1.98 GHz (boost clock).  PEAK_F32_FLOPS counts an FMA as two.
+PEAK_F32_OPS = 132 * 128 * 1.98e9
+
+
+def bound(mode, xs, ys, lx, ly, eps):
+    """(bound_ms, bound_by, old_ms): the larger of the bytes the alignment
+    function must move over HBM rate and the operations its cells need over
+    the card's rate for them.  Bytes: x and y at the dispatch's widths (f32
+    tokens or series), the two lengths (int32), eps (f32), each read once,
+    and dist (f32), hit and pruned (bool) written once.  Operations, per
+    cell of each row's own ``len_x x len_y`` (those the function cannot do
+    without on any input):
+
+    * cost: lev one compare of two tokens; float modes d subtracts,
+      d multiplies, d - 1 adds, the sqrt and its BIG clamp (the max with 0
+      of a sum of squares changes nothing);
+    * combine: dtw and dfd 3 (two mins and an add or max), erp 5 (three
+      adds, two mins), lev 4 (min(du + 1, dl + 1) == min(du, dl) + 1: an
+      add and a min are enough for the two);
+    * the BIG clamp of the sum: dtw and erp 1; dfd and lev 0 (no operand
+      exceeds BIG, and BIG + 1 rounds to BIG);
+    * the certificate, on rows with finite eps only (+inf rows can never
+      be pruned): 1, a running minimum of the new diagonal (the previous
+      diagonal's minimum is carried);
+
+    and for erp per element of the row's own lengths its gap (d multiplies,
+    d - 1 adds, sqrt, clamp) and border sum (an add and a clamp).  None is a
+    fused multiply-add, so they count against PEAK_F32_OPS.  ``old_ms`` is
+    the figure earlier versions of this script printed: their count (lev
+    cost 3 ops, float cost 3d + 2, the clamp in every mode and two for the
+    certificate on every row) over PEAK_F32_FLOPS, which counts each of
+    these operations as half an FMA."""
     import numpy as np
     B = xs.shape[0]
     d = 1 if mode == "lev" else xs.shape[2]
-    nbytes = xs.nbytes + ys.nbytes + B * (2 * 4 + 4) + B * (4 + 1 + 1)
-    # per cell: cost (lev: d sub + d abs + d-1 add + compare; float modes:
-    # d sub + d mul + d-1 add + max + sqrt + min), combine (dtw/dfd 3,
-    # lev/erp 5), the BIG clamp, and the certificate's two mins
-    cost = 3 * d if mode == "lev" else 3 * d + 2
-    comb = 3 if mode in ("dtw", "dfd") else 5
-    cells = float(np.sum(np.asarray(lx, np.float64) * np.asarray(ly)))
-    flops = cells * (cost + comb + 1 + 2)
+    nbytes = 4 * (xs.size + ys.size) + B * (2 * 4 + 4) + B * (4 + 1 + 1)
+    lx = np.asarray(lx, np.float64)
+    ly = np.asarray(ly, np.float64)
+    finite = np.isfinite(np.asarray(eps, np.float64))
+    cost = 1 if mode == "lev" else 3 * d + 1
+    comb = {"dtw": 3, "dfd": 3, "erp": 5, "lev": 4}[mode]
+    clamp = 1 if mode in ("dtw", "erp") else 0
+    cells = float(np.sum(lx * ly))
+    ops = cells * (cost + comb + clamp) + float(np.sum((lx * ly)[finite]))
+    if mode == "erp":
+        ops += float(np.sum(lx + ly)) * (2 * d + 3)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    old_ops = cells * ((3 * d if mode == "lev" else 3 * d + 2)
+                       + (3 if mode in ("dtw", "dfd") else 5) + 1 + 2)
+    old = max(t_bytes, old_ops / PEAK_F32_FLOPS * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", old
+    return t_ops, "operations", old
 
 
 # -- phase 3: kernel against its plain version ---------------------------------
 
-def compare(wf, mode, ops, eps, Lx, Ly):
+def compare(wf, mode, ops, eps):
     import torch
-    got = wf.wavefront_cuda(*ops, eps, mode=mode, Lx=Lx, Ly=Ly)
-    want = wf.wavefront_torch(*ops, eps, mode=mode, Lx=Lx, Ly=Ly)
+    got = wf.wavefront_cuda(*ops, eps, mode=mode)
+    want = wf.wavefront_torch(*ops, eps, mode=mode)
     torch.cuda.synchronize()
     gd, wd = got[0], want[0]
     if not torch.isfinite(gd).all():
@@ -194,46 +256,56 @@ def compare(wf, mode, ops, eps, Lx, Ly):
     return float((gd - wd).abs().max()), got
 
 
-def phase_kernel_parity(torch, wf, registry, rng, dev) -> float:
+def phase_kernel_parity(torch, wf, rng, dev) -> float:
     import numpy as np
     t0 = time.perf_counter()
     cases = []
     for mode in ("dtw", "erp", "dfd", "lev"):
         for d in ((1,) if mode == "lev" else (1, 2, 3)):
-            cases.append((mode, 300, (1, 13), (1, 9), d, 1.0))   # Lx != Ly
-            cases.append((mode, 200, (5, 22), (20, 20), d, 1.0))  # main path
+            cases.append((mode, 300, (1, 13), (1, 9), d, 1.0, True))  # Lx!=Ly
+            cases.append((mode, 200, (5, 22), (20, 20), d, 1.0, True))  # main
     for mode in ("dtw", "erp", "dfd", "lev"):
         cases.append((mode, 64, (60, 100), (40, 90), 2 if mode != "lev"
-                      else 1, 1.0))                     # past one warp
-    cases.append(("erp", 4, (1000, 1100), (900, 1000), 3, 1.0))  # > block
-    cases.append(("lev", 4, (1050, 1100), (1000, 1100), 1, 1.0))
+                      else 1, 1.0, True))                # past one warp
+    cases.append(("erp", 4, (1000, 1100), (900, 1000), 3, 1.0, True))
+    cases.append(("lev", 4, (1050, 1100), (1000, 1100), 1, 1.0, True))
     # overflow: long, high-gap-mass rows that saturate at BIG
-    cases.append(("erp", 16, (40, 48), (40, 48), 1, 1e25))
-    cases.append(("dtw", 16, (24, 32), (24, 32), 1, 3e24))
+    cases.append(("erp", 16, (40, 48), (40, 48), 1, 1e25, True))
+    cases.append(("dtw", 16, (24, 32), (24, 32), 1, 3e24, True))
+    # seeded non-zero content past the lengths: the padding cells' costs
+    # feed the certificate, one schedule each (one thread or one block a row)
+    for mode in ("dtw", "erp", "dfd", "lev"):
+        d = 1 if mode == "lev" else 2
+        cases.append((mode, 300, (5, 22), (18, 20), d, 1.0, False))
+        cases.append((mode, 32, (40, 70), (30, 60), d, 1.0, False))
     worst = 0.0
-    for mode, B, lxr, lyr, d, scale in cases:
-        spec = registry.spec_for_mode(mode)
+    pruned_pad = 0
+    for mode, B, lxr, lyr, d, scale, zero_pad in cases:
         if scale > 1.0:  # constant huge rows of opposite signs
             xs = np.full((B, lxr[1], d), scale, np.float32)
             ys = -np.full((B, lyr[1], d), scale, np.float32)
             lx = rng.integers(lxr[0], lxr[1] + 1, B)
             ly = rng.integers(lyr[0], lyr[1] + 1, B)
         else:
-            xs, ys, lx, ly = make_rows(rng, mode, B, lxr, lyr, d)
-        ops, Lx, Ly = operands(spec, xs, ys, lx, ly, dev)
+            xs, ys, lx, ly = make_rows(rng, mode, B, lxr, lyr, d,
+                                       zero_pad=zero_pad)
+        ops = operands(mode, xs, ys, lx, ly, dev)
         inf = torch.full((B,), float("inf"), device=dev)
-        err, exact = compare(wf, mode, ops, inf, Lx, Ly)
+        err, exact = compare(wf, mode, ops, inf)
         worst = max(worst, err)
         # eps mix: +inf rows, finite rows, rows whose eps IS their distance
         dist = exact[0]
         eps = torch.quantile(dist, 0.4).expand(B).clone()
         eps[0::3] = float("inf")
         eps[1::3] = dist[1::3]
-        err, _ = compare(wf, mode, ops, eps, Lx, Ly)
+        err, got = compare(wf, mode, ops, eps)
         worst = max(worst, err)
+        if not zero_pad:
+            pruned_pad += int(got[2].sum())
         if scale > 1.0 and not bool((exact[0] >= 3e37).all()):
             raise AssertionError(f"{mode}: overflow rows did not saturate")
-    log("kernel-vs-plain", cases=len(cases), max_abs_err=worst,
+    log("kernel-vs-plain", cases=len(cases), nonzero_padding_cases=8,
+        pruned_rows_there=pruned_pad, max_abs_err=worst,
         tol=f"lev bit-equal; float rtol=atol={RTOL}; hit/pruned equal",
         s=f"{time.perf_counter() - t0:.2f}")
     return worst
@@ -309,16 +381,27 @@ def phase_main_parity(torch, wf, rng, dev) -> None:
 class Timed:
     """Host seconds vs kernel seconds of a run: wraps the wavefront wrapper
     with CUDA events (the events are recorded around each launch and read
-    once at the end, so timing adds no synchronisation)."""
+    once at the end, so timing adds no synchronisation).  Also counts calls
+    of ``wavefront.padded_layout``, the reference's padded operand layout,
+    which only the plain version builds: on the card path it must run 0
+    times."""
 
     def __init__(self, torch, wf):
         self.torch, self.wf = torch, wf
         self.events = []
         self.rows = []
+        self.layouts = 0
 
     def __enter__(self):
         self._orig = self.wf.wavefront_cuda
+        self._orig_layout = self.wf.padded_layout
         torch, events, rows = self.torch, self.events, self.rows
+
+        def counted_layout(*args, **kw):
+            self.layouts += 1
+            return self._orig_layout(*args, **kw)
+
+        self.wf.padded_layout = counted_layout
 
         def timed(*args, **kw):
             a = torch.cuda.Event(enable_timing=True)
@@ -335,6 +418,7 @@ class Timed:
 
     def __exit__(self, *exc):
         self.wf.wavefront_cuda = self._orig
+        self.wf.padded_layout = self._orig_layout
         self.torch.cuda.synchronize()
 
     def kernel_s(self) -> float:
@@ -343,7 +427,9 @@ class Timed:
 
 def drive(torch, wf, dispatch, label, fn):
     """Run ``fn`` with launch counts zeroed just before; returns
-    (result, seconds, launches, kernel seconds, rows per dispatch)."""
+    (result, seconds, launches, kernel seconds, rows per dispatch).  Fails
+    if the padded operand layout was built on the way (the kernel reads the
+    dispatch's rows as they are)."""
     dispatch.STATS.reset()
     wf.LAUNCHES = 0
     with Timed(torch, wf) as tm:
@@ -352,6 +438,9 @@ def drive(torch, wf, dispatch, label, fn):
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
     launches = wf.LAUNCHES
+    if tm.layouts:
+        raise AssertionError(f"{label}: the padded layout was built "
+                             f"{tm.layouts} times on the card path")
     return out, s, launches, tm.kernel_s(), list(tm.rows)
 
 
@@ -454,6 +543,8 @@ def phase_full(torch, wf, dispatch, args, dev) -> dict:
             dispatches=rs.stats["dispatches"], launches=launches,
             s=f"{s:.2f}", host_s=f"{s - ks:.2f}", kernel_s=f"{ks:.4f}",
             **extra)
+    log("full-layouts", padded_layout_calls=0, launches=total_launches,
+        note=repr("the kernel read every dispatch's rows as they are"))
     return {"launches": total_launches, "sizes": sizes}
 
 
@@ -478,9 +569,22 @@ def time_ms(torch, fn, min_ms=50.0, max_iters=200) -> float:
     return a.elapsed_time(b) / iters
 
 
-def phase_timing(torch, wf, registry, rng, dev, sizes) -> list:
+def wavefront_smem(build, mode, Lx, Ly, d):
+    """(dynamic shared memory bytes of one block, rows per block; 0 rows:
+    one block per row) that the wavefront launcher chooses."""
+    import ctypes
+    rows = ctypes.c_int(0)
+    nbytes = build.load("wavefront").wavefront_smem_bytes(
+        MODES.index(mode), Lx, Ly, d, ctypes.byref(rows))
+    return nbytes, rows.value
+
+
+def phase_timing(torch, wf, build, rng, dev, sizes) -> list:
     import numpy as np
     t0 = time.perf_counter()
+    print("[timing] ms is all device work of a dispatch: the kernel reads the "
+          "rows as the dispatch hands them (no padded layout is built "
+          "before it)", flush=True)
     # the lam=40 build pairs windows with windows (20 x 20); step 4 pairs
     # query segments of 18-22 tokens with windows
     build_rows = sizes["build_a"]
@@ -495,27 +599,23 @@ def phase_timing(torch, wf, registry, rng, dev, sizes) -> list:
               ("erp", 1 << 18, (20, 20), (20, 20), 2, "262,144 rows")]
     rows_out = []
     for mode, B, lxr, lyr, d, what in shapes:
-        spec = registry.spec_for_mode(mode)
         xs, ys, lx, ly = make_rows(rng, mode, B, lxr, lyr, d)
-        ops, Lx, Ly = operands(spec, xs, ys, lx, ly, dev)
+        ops = operands(mode, xs, ys, lx, ly, dev)
         eps = torch.full((B,), float("inf"), device=dev)
-        ms = time_ms(torch, lambda: wf.wavefront_cuda(
-            *ops, eps, mode=mode, Lx=Lx, Ly=Ly))
+        ms = time_ms(torch, lambda: wf.wavefront_cuda(*ops, eps, mode=mode))
         plain = time_ms(torch, lambda: wf.wavefront_torch(
-            *ops, eps, mode=mode, Lx=Lx, Ly=Ly), min_ms=500.0, max_iters=20)
-        # the registry's operand layout prep that precedes every launch,
-        # from operands already on the card
-        on_dev = [torch.as_tensor(a, device=dev) for a in (xs, ys, lx, ly)]
-        layout = time_ms(torch, lambda: spec.layout(*on_dev),
-                         min_ms=100.0, max_iters=50)
-        del on_dev
-        b_ms, by = bound(mode, xs, ys, lx, ly)
-        log("timing", mode=mode, rows=B, shape=f"{Lx}x{Ly}x{d}",
-            what=repr(what), ms=f"{ms:.4f}", plain_ms=f"{plain:.3f}",
-            layout_ms=f"{layout:.3f}", bound_ms=f"{b_ms:.4f}", bound_by=by,
-            share=f"{b_ms / ms:.3f}")
+            *ops, eps, mode=mode), min_ms=500.0, max_iters=20)
+        b_ms, by, old = bound(mode, xs, ys, lx, ly, eps.cpu().numpy())
+        smem, per_block = wavefront_smem(build, mode, xs.shape[1],
+                                         ys.shape[1], d)
+        log("timing", mode=mode, rows=B, rows_per_block=per_block,
+            smem_bytes=smem,
+            shape=f"{xs.shape[1]}x{ys.shape[1]}x{d}", what=repr(what),
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.3f}", bound_ms=f"{b_ms:.4f}",
+            bound_by=by, share=f"{b_ms / ms:.3f}",
+            old_bound_ms=f"{old:.4f}", old_share=f"{old / ms:.3f}")
         rows_out.append(dict(mode=mode, rows=B, ms=ms, plain_ms=plain,
-                             bound_ms=b_ms, bound_by=by))
+                             bound_ms=b_ms, bound_by=by, old_bound_ms=old))
     log("timing-done", s=f"{time.perf_counter() - t0:.2f}")
     return rows_out
 
@@ -523,10 +623,11 @@ def phase_timing(torch, wf, registry, rng, dev, sizes) -> list:
 # -- phase 3c: pairwise_l2 kernel against its plain version --------------------
 
 def l2_sq_bound(x, y):
-    """Worst-case f32 gap between two evaluations of the norm-and-dot
-    formula on squared distances: (4d + 6) 2^-24 (|x|^2 + |y|^2)."""
+    """Worst-case gap on squared distances between the kernel (3xTF32
+    products on the tensor cores) and the f32 plain version, derived in
+    csrc/pairwise_l2.cu: (9d + 26 + 6d 2^-8) 2^-24 (|x|^2 + |y|^2)."""
     d = x.shape[1]
-    return (4 * d + 6) * 2.0 ** -24 * (
+    return (9 * d + 26 + 6 * d * 2.0 ** -8) * 2.0 ** -24 * (
         (x.double() ** 2).sum(1)[:, None] + (y.double() ** 2).sum(1)[None, :])
 
 
@@ -561,27 +662,48 @@ def phase_l2_parity(torch, pl2, dev) -> float:
     # the reference's kernel-test shapes, ragged edges, d = 1 and d = 961
     for M, N, d in ((1, 1, 3), (16, 16, 8), (37, 51, 19), (128, 128, 64),
                     (130, 5, 33), (65, 67, 1), (100, 70, 961)):
-        cases.append((randn(M, d), randn(N, d), None))
+        cases.append(("reference shape", randn(M, d), randn(N, d), None))
     # the embedding case: unit rows, exact and near (1e-4) duplicates
     x, y = randn(1000, 960), randn(3000, 960)
     y[:500] = x[:500]
     y[500:1000] = x[500:1000] + 1e-4 * randn(500, 960)
     x /= x.norm(dim=1, keepdim=True)
     y /= y.norm(dim=1, keepdim=True)
-    cases.append((x, y, None))
+    cases.append(("unit rows, duplicates", x, y, None))
     # M * N > 2^31: 64-bit output offsets; rows straddling the 2^31 mark
     M, N = 65600, 32768
     rows = torch.tensor([0, 1, 65535, 65536, 65537, 65599], device=dev)
-    cases.append((randn(M, 8), randn(N, 8), rows))
-    worst_ratio = worst_abs = 0.0
-    for x, y, rows in cases:
+    cases.append(("M*N > 2^31", randn(M, 8), randn(N, 8), rows))
+    # entries spread over 2^-20 .. 2^20 (the split's small parts span the
+    # whole f32 range), with near twins; at both tiles and both loaders
+    for M, N, d in ((203, 517, 960), (1000, 8300, 960), (77, 150, 957)):
+        x = randn(M, d) * torch.exp2(
+            torch.empty(M, d, device=dev).uniform_(-20, 20, generator=g))
+        y = randn(N, d) * torch.exp2(
+            torch.empty(N, d, device=dev).uniform_(-20, 20, generator=g))
+        y[:M // 2] = x[:M // 2] * (1 + 1e-3 * randn(M // 2, d))
+        cases.append(("mixed magnitudes", x, y, None))
+    # M and N no multiple of either tile (64 x 80, 128 x 128)
+    for M, N, d in ((131, 161, 960), (2049, 4097, 963)):
+        cases.append(("ragged tiles", randn(M, d), randn(N, d), None))
+    worst_ratio = worst_abs = worst_unit = 0.0
+    for what, x, y, rows in cases:
         ratio, err = compare_l2(torch, pl2, x, y, rows)
-        worst_ratio, worst_abs = max(worst_ratio, ratio), max(worst_abs, err)
+        log("l2-case", what=repr(what),
+            shape=f"{x.shape[0]}x{y.shape[0]}x{x.shape[1]}",
+            loader=pl2.LAST_PLAN["loader"], tile=pl2.LAST_PLAN["tile"],
+            sq_err_over_bound=f"{ratio:.4g}", max_abs_err=f"{err:.3g}")
+        worst_ratio = max(worst_ratio, ratio)
+        worst_abs = max(worst_abs, err)
+        if what != "mixed magnitudes":  # there D reaches 1e7: held on D^2
+            worst_unit = max(worst_unit, err)
     log("l2-kernel-vs-plain", cases=len(cases),
         max_sq_err_over_bound=f"{worst_ratio:.4f}", max_abs_err=worst_abs,
-        tol="|dD^2| <= (4d+6) 2^-24 (|x|^2+|y|^2)",
+        max_abs_err_unit_scale=worst_unit,
+        tol="|dD^2| <= (9d+26+6d/256) 2^-24 (|x|^2+|y|^2)",
         s=f"{time.perf_counter() - t0:.2f}")
-    return worst_abs
+    return {"max_abs_err": worst_abs, "max_abs_err_unit_scale": worst_unit,
+            "max_sq_err_over_bound": worst_ratio}
 
 
 # -- phase 6: embedding retrieval at smollm-360m's full widths ---------------
@@ -741,19 +863,29 @@ def phase_embedding(torch, pl2, args, dev) -> dict:
 
 # -- phase 6b: pairwise_l2 timing ---------------------------------------------
 
+#: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12
+
+
 def l2_bound(M, N, d):
-    """(bound_ms, bound_by): the f32 operations (2MNd for the products,
-    2(M+N)d for the norms, one multiply and one add per element, 5MN for
-    the epilogue) over the f32 peak against x and y read once and D
-    written once over HBM rate."""
-    flops = 2.0 * M * N * d + 2.0 * (M + N) * d + 5.0 * M * N
-    nbytes = 4.0 * ((M + N) * d + M * N)
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """(bound_ms, bound_by, f32_ms): the least time for the f32-accurate
+    function.  Operations: the three TF32 products of the 3xTF32 split,
+    3 x 2MNd, over the tensor-core peak, plus the norms (2(M+N)d, a
+    multiply and an add per element) and the epilogue (5MN) over the f32
+    peak; bytes: x and y read once and D written once over HBM rate.
+    ``f32_ms`` is the bound of an f32 kernel, every operation over the f32
+    peak."""
+    t_ops = (6.0 * M * N * d / PEAK_TF32_FLOPS
+             + (2.0 * (M + N) * d + 5.0 * M * N) / PEAK_F32_FLOPS) * 1e3
+    t_bytes = 4.0 * ((M + N) * d + M * N) / PEAK_BYTES * 1e3
+    f32 = max(t_bytes, (2.0 * M * N * d + 2.0 * (M + N) * d + 5.0 * M * N)
+              / PEAK_F32_FLOPS * 1e3)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", f32
+    return t_bytes, "bytes", f32
 
 
-def phase_l2_timing(torch, pl2, dev, main_x, main_y) -> list:
+def phase_l2_timing(torch, pl2, build, dev, main_x, main_y) -> list:
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(5)
     shapes = [("main path: probes x windows", main_x, main_y),
@@ -762,17 +894,25 @@ def phase_l2_timing(torch, pl2, dev, main_x, main_y) -> list:
     rows = []
     for what, x, y in shapes:
         M, N, d = x.shape[0], y.shape[0], x.shape[1]
-        ms = time_ms(torch, lambda: pl2.pairwise_l2_cuda(x, y))
-        plain = time_ms(torch, lambda: pl2.pairwise_l2_torch(x, y))
         lib = time_ms(torch, lambda: torch.cdist(
             x, y, compute_mode="use_mm_for_euclid_dist"))
-        b_ms, by = l2_bound(M, N, d)
+        ms = time_ms(torch, lambda: pl2.pairwise_l2_cuda(x, y))
+        plain = time_ms(torch, lambda: pl2.pairwise_l2_torch(x, y))
+        lib2 = time_ms(torch, lambda: torch.cdist(
+            x, y, compute_mode="use_mm_for_euclid_dist"))
+        lib = min(lib, lib2)  # library timed before and after the kernel
+        b_ms, by, f32 = l2_bound(M, N, d)
+        plan = (pl2.LAST_PLAN["loader"] == "tma") | (
+            2 * (pl2.LAST_PLAN["tile"] == "128x128"))
         log("l2-timing", what=repr(what), shape=f"{M}x{N}x{d}",
+            loader=pl2.LAST_PLAN["loader"], tile=pl2.LAST_PLAN["tile"],
+            smem_bytes=build.load("pairwise_l2").pairwise_l2_smem_bytes(plan),
             ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
             bound_ms=f"{b_ms:.4f}", bound_by=by, share=f"{b_ms / ms:.3f}",
+            f32_bound_ms=f"{f32:.4f}", f32_share=f"{f32 / ms:.3f}",
             tflops=f"{2.0 * M * N * d / ms / 1e9:.2f}")
         rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=b_ms, bound_by=by))
+                         bound_ms=b_ms, bound_by=by, f32_bound_ms=f32))
     log("l2-timing-done", s=f"{time.perf_counter() - t0:.2f}")
     return rows
 
@@ -800,7 +940,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.kernels import build, registry, dispatch
+        from repro_torch.kernels import build, dispatch
         from repro_torch.kernels import pairwise_l2 as pl2
         from repro_torch.kernels import wavefront as wf
     except ImportError as e:
@@ -816,13 +956,13 @@ def main(argv=None) -> int:
 
     facts = phase_facts(torch, build)
     phase_build(build)
-    max_err = phase_kernel_parity(torch, wf, registry, rng, dev)
+    max_err = phase_kernel_parity(torch, wf, rng, dev)
     l2_err = phase_l2_parity(torch, pl2, dev)
     phase_main_parity(torch, wf, rng, dev)
     full = phase_full(torch, wf, dispatch, args, dev)
     emb = phase_embedding(torch, pl2, args, dev)
-    timing = phase_timing(torch, wf, registry, rng, dev, full["sizes"])
-    l2_rows = phase_l2_timing(torch, pl2, dev, emb["x"], emb["y"])
+    timing = phase_timing(torch, wf, build, rng, dev, full["sizes"])
+    l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
     main_row = timing[1]  # the main path's largest dispatch
     kernels = [{
@@ -832,11 +972,11 @@ def main(argv=None) -> int:
         "launches": full["launches"], "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}, {
+        "old_bound_ms": main_row["old_bound_ms"], "library_ms": None}, {
         "name": "pairwise_l2", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
         "replaces": "src/repro/kernels/pairwise_l2.py:47",
-        "launches": emb["launches"], "max_abs_err": l2_err,
+        "launches": emb["launches"], **l2_err,
         **l2_rows[0]}]
     log("total", s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}))

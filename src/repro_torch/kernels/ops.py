@@ -1,7 +1,9 @@
 """Public entry points of the hand-written kernels.
 
 ``wavefront`` runs a batched alignment distance through the kernel
-registry (layout preparation, ragged lengths and fused ε live there);
+registry (ragged lengths, dtypes and fused ε live there; the kernel takes
+the trimmed rows as they are, and only its plain version builds the
+reference's padded layout);
 ``pairwise_l2`` computes an all-pairs Euclidean matrix.  Both run on the
 card by default: the CUDA kernels there, their plain torch versions for
 ``device="cpu"``.  The reference's TPU knobs (``block_b``, ``interpret``,

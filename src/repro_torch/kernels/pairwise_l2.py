@@ -5,8 +5,10 @@ The embedding-retrieval path filters M query windows against N database
 windows under L2: ``D[i, j] = sqrt(max(|x_i|^2 + |y_j|^2 - 2 x_i . y_j, 0))``.
 This replaces the Pallas TPU kernel ``src/repro/kernels/pairwise_l2.py``
 (``_kernel`` under ``pairwise_l2_pallas``); the CUDA source,
-``csrc/pairwise_l2.cu``, says how it is laid out on the card.  Unlike the
-TPU path, nothing is padded to tile multiples: the kernel guards its edges.
+``csrc/pairwise_l2.cu``, says how it is laid out on the card: 3xTF32
+products on the tensor cores (``wgmma``), operands staged by TMA, within a
+derived bound of the f32 plain version.  Unlike the TPU path, nothing is
+padded to tile multiples: the kernel guards its edges.
 
 :func:`pairwise_l2` is the entry point: CPU tensors run
 :func:`pairwise_l2_torch` (the plain version), CUDA tensors launch the
@@ -24,6 +26,11 @@ from repro_torch.kernels import build
 
 #: kernel launches by :func:`pairwise_l2_cuda` (one per successful launch)
 LAUNCHES = 0
+
+#: what the launcher chose for the last launch: ``loader`` ``"tma"`` (d a
+#: multiple of 4, 16-byte aligned rows) or ``"plain"``, ``tile`` ``"64x80"``
+#: or ``"128x128"``
+LAST_PLAN: dict = {}
 
 
 def pairwise_l2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -51,7 +58,7 @@ def _library() -> ctypes.CDLL:
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         lib.pairwise_l2_error_string.restype = ctypes.c_char_p
         lib.pairwise_l2_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -91,13 +98,16 @@ def pairwise_l2_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return out
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = ctypes.c_int(0)
     rc = lib.pairwise_l2_launch(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, d,
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        stream)
+        stream, ctypes.byref(plan))
     if rc != 0:
         msg = lib.pairwise_l2_error_string(rc).decode()
         raise RuntimeError(f"pairwise_l2 kernel launch failed ({rc}: {msg}) "
                            f"for M={M} N={N} d={d}")
     LAUNCHES += 1
+    LAST_PLAN.update(loader="tma" if plan.value & 1 else "plain",
+                     tile="128x128" if plan.value & 2 else "64x80")
     return out

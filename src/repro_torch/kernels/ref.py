@@ -54,7 +54,7 @@ def prepare(xs: torch.Tensor, ys: torch.Tensor, mode: str):
     B, Lx, Ly = xs.shape[0], xs.shape[1], ys.shape[1]
     cost = torch.clamp_max(l2_cost(xs, ys), BIG)
     if mode == "erp":
-        # gaps and border cumsums clamp at BIG, as in the kernel's layout
+        # gaps and border cumsums clamp at BIG, as in the kernel
         gap_x = torch.clamp_max(torch.sqrt(torch.clamp_min(
             (xs * xs).sum(-1), 0.0)), BIG)
         gap_y = torch.clamp_max(torch.sqrt(torch.clamp_min(

@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.distances._wavefront import sum_last
 from repro_torch.kernels.wavefront import BIG, wavefront
 
 #: wavefront mode <-> distance-registry name
@@ -48,16 +47,6 @@ class KernelOut(NamedTuple):
     dist: object
     hit: object
     pruned: object
-
-
-def _cumsum_seq(t: torch.Tensor) -> torch.Tensor:
-    """Prefix sums along axis 1, left to right one add at a time — the
-    order of numpy's host wavefront on every device (a CUDA scan may
-    associate differently)."""
-    cols = [t[:, 0]]
-    for j in range(1, t.shape[1]):
-        cols.append(cols[-1] + t[:, j])
-    return torch.stack(cols, dim=1)
 
 
 def _lengths(lens, B: int, width: int) -> np.ndarray:
@@ -102,8 +91,6 @@ class KernelSpec:
             ys = ys[:, :max(int(ly_h.max()), 1)]
         xs = device_mod.as_tensor(xs, dev)
         ys = device_mod.as_tensor(ys, dev)
-        lx_t = torch.as_tensor(lx_h).to(dev)
-        ly_t = torch.as_tensor(ly_h).to(dev)
         if eps is None:
             eps_t = torch.full((B,), float("inf"), device=dev)
         else:
@@ -112,8 +99,11 @@ class KernelSpec:
                 (B,)).contiguous()
         STATS["calls"] += 1
         if self.kind == "elementwise":
-            return self._elementwise(xs, ys, lx_t, eps_t)
-        return self._wavefront(xs, ys, lx_t, ly_t, eps_t)
+            return self._elementwise(xs, ys, torch.as_tensor(lx_h).to(dev),
+                                     eps_t)
+        lens = torch.as_tensor(np.stack([lx_h, ly_h], axis=1)
+                               .astype(np.int32)).to(dev)  # one copy
+        return self._wavefront(xs, ys, lens, eps_t)
 
     def _elementwise(self, xs, ys, lx, eps_v) -> KernelOut:
         L = xs.shape[1]
@@ -130,67 +120,17 @@ class KernelSpec:
         return KernelOut(torch.where(hit, d, BIG), hit,
                          torch.zeros_like(hit))
 
-    def layout(self, xs, ys, lx, ly):
-        """The wavefront operand layout (the reference's
-        ``KernelSpec._wavefront`` prep): x shift-padded so position ``i``
-        holds ``x[i-1]``; y reversed and padded so diagonal ``k`` reads
-        window start ``Lx+1+Ly-k`` (ragged rows keep their zero padding at
-        the *front* after the flip — the DP cells that read it never feed
-        the answer at ``(len_x, len_y)``); ERP gap costs; ``BIG``-clamped
-        border cumsums.  Returns the eight kernel operands (without eps)
-        and the dispatch widths ``(Lx, Ly)``."""
-        mode = self.mode
-        xs = xs.to(torch.float32)  # lev tokens ride as exact small floats
-        ys = ys.to(torch.float32)
-        if xs.ndim == 2:
+    def _wavefront(self, xs, ys, lens, eps_v) -> KernelOut:
+        """The operands go to :func:`~repro_torch.kernels.wavefront.wavefront`
+        as the dispatch trimmed them: the kernel builds borders, gaps and
+        costs on chip (the plain version first builds the reference's padded
+        layout).  Everything rides as f32, as in the reference: Levenshtein
+        tokens of any dtype ``(B, L)``, series ``(B, L, d)``."""
+        xs, ys = xs.to(torch.float32), ys.to(torch.float32)
+        if self.mode != "lev" and xs.ndim == 2:
             xs, ys = xs[..., None], ys[..., None]
-        B, Lx, d = xs.shape
-        Ly = ys.shape[1]
-        dev = xs.device
-        Ypad = 2 * Lx + Ly + 1
-        x_pad = torch.zeros((B, Lx + 1, d), device=dev)
-        x_pad[:, 1:] = xs
-        y_rev_pad = torch.zeros((B, Ypad, d), device=dev)
-        y_rev_pad[:, Lx + 1:Lx + 1 + Ly] = ys.flip(1)
-        gap_x = torch.zeros((B, Lx + 1), device=dev)
-        gap_y_rev = torch.zeros((B, Ypad), device=dev)
-        if mode == "erp":
-            gx = torch.clamp_max(torch.sqrt(torch.clamp_min(
-                sum_last(xs * xs), 0.0)), BIG)
-            gy = torch.clamp_max(torch.sqrt(torch.clamp_min(
-                sum_last(ys * ys), 0.0)), BIG)
-            # zero the padding tail so border cumsums end at (len_x, len_y)
-            gx = torch.where(torch.arange(Lx, device=dev)[None, :]
-                             < lx[:, None], gx, 0.0)
-            gy = torch.where(torch.arange(Ly, device=dev)[None, :]
-                             < ly[:, None], gy, 0.0)
-            gap_x[:, 1:] = gx
-            gap_y_rev[:, Lx + 1:Lx + 1 + Ly] = gy.flip(1)
-            zero = torch.zeros((B, 1), device=dev)
-            # clamp: a cumsum above the BIG sentinel would corrupt the DP's
-            # quasi-infinity ordering (and overflow to inf three adds later)
-            border_col = torch.clamp_max(
-                torch.cat([zero, _cumsum_seq(gx)], dim=1), BIG)
-            border_row = torch.clamp_max(
-                torch.cat([zero, _cumsum_seq(gy)], dim=1), BIG)
-        elif mode == "lev":
-            border_col = torch.arange(Lx + 1, dtype=torch.float32,
-                                      device=dev).repeat(B, 1)
-            border_row = torch.arange(Ly + 1, dtype=torch.float32,
-                                      device=dev).repeat(B, 1)
-        else:
-            border_col = torch.full((B, Lx + 1), BIG, device=dev)
-            border_col[:, 0] = 0.0
-            border_row = torch.full((B, Ly + 1), BIG, device=dev)
-            border_row[:, 0] = 0.0
-        lens = torch.stack([lx, ly], dim=1).to(torch.int32)  # (B, 2)
-        return (x_pad, y_rev_pad, gap_x, gap_y_rev, border_col, border_row,
-                lens), (Lx, Ly)
-
-    def _wavefront(self, xs, ys, lx, ly, eps_v) -> KernelOut:
-        ops, (Lx, Ly) = self.layout(xs, ys, lx, ly)
-        dist, hit, pruned = wavefront(*ops, eps_v, mode=self.mode, Lx=Lx,
-                                      Ly=Ly)
+        dist, hit, pruned = wavefront(xs.contiguous(), ys.contiguous(), lens,
+                                      eps_v, mode=self.mode)
         return KernelOut(dist, hit, pruned)
 
 

@@ -5,29 +5,36 @@ This is the paper's compute hot spot (§5/§7 steps 2 and 4: every index-build
 pair and every query segment against every surviving database window goes
 through an O(l^2) alignment DP).  It replaces the Pallas TPU kernel
 ``src/repro/kernels/wavefront.py:wavefront_pallas`` and computes the same
-function on the same padded operand layout (prepared by
-``kernels/registry.py``):
+function:
 
 * diagonal ``k = i + j`` of the DP table depends only on diagonals ``k-1``
   and ``k-2``, so the ``Lx + Ly`` steps each update one ``(B, Lx+1)``
   diagonal;
-* each cell's cost is computed on the fly from ``x_pad`` (position ``i``
-  holds ``x[i-1]``) and a reversed, padded ``y`` (diagonal ``k`` reads the
-  contiguous window starting at ``Lx + 1 + Ly - k``);
+* each cell's cost is computed on the fly from ``x[i-1]`` and ``y[j-1]``;
 * borders (column ``j = 0`` at ``i == k``, row ``i = 0``) are injected per
   step, cells outside the valid band are set to ``BIG``, and every DP sum
   is clamped to ``BIG``;
 * ragged rows: each row carries ``(len_x, len_y)`` and its answer is read off
   diagonal ``len_x + len_y``;
 * fused ε-pruning: a row is certified ``> eps`` when ``min(new, d1)`` over the
-  whole padded diagonal exceeds ``eps`` on some step before its answer
-  diagonal (every monotone path touches one of any two consecutive
-  diagonals).  ``eps = +inf`` rows opt out.
+  whole dispatch width ``Lx + 1`` (padding cells included) exceeds ``eps``
+  on some step up to its answer diagonal (every monotone path touches one of
+  any two consecutive diagonals).  ``eps = +inf`` rows opt out.
+
+Operands are the dispatch's rows as they are, unpadded: ``xs`` ``(B, Lx)`` /
+``ys`` ``(B, Ly)`` f32 tokens for ``lev`` (as in the reference, tokens ride
+as exact small floats), else ``(B, Lx, d)`` / ``(B, Ly, d)`` f32 series;
+``lens`` ``(B, 2)`` int32 ``(len_x, len_y)``; ``eps`` ``(B,)`` f32.  Content
+past a row's own lengths is the dispatch's padding and enters the
+certificate exactly as in the reference.
 
 :func:`wavefront` is the entry point: CPU tensors run :func:`wavefront_torch`
-(the plain version, the counterpart of ``wavefront_scan``), CUDA tensors
+(the plain version, the counterpart of ``wavefront_scan``, which first builds
+the reference's padded layout with :func:`padded_layout`), CUDA tensors
 launch the kernel in ``csrc/wavefront.cu`` through :func:`wavefront_cuda`
-or raise.  There is no fall back from the card to the plain version.
+or raise.  The kernel builds borders, gaps and costs on chip and never sees
+the padded layout.  There is no fall back from the card to the plain
+version.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distances._wavefront import sum_last
 from repro_torch.kernels import build
 
 BIG = 3.4e37
@@ -50,38 +58,99 @@ LAUNCHES = 0
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def wavefront(x_pad, y_rev_pad, gap_x, gap_y_rev, border_col, border_row,
-              lens, eps, *, mode: str, Lx: int, Ly: int) -> Out:
-    """``(dist, hit, pruned)`` over the padded layout, on the operands'
-    device: the plain version for CPU tensors, the CUDA kernel otherwise."""
-    if x_pad.device.type == "cpu":
-        return wavefront_torch(x_pad, y_rev_pad, gap_x, gap_y_rev,
-                               border_col, border_row, lens, eps,
-                               mode=mode, Lx=Lx, Ly=Ly)
-    return wavefront_cuda(x_pad, y_rev_pad, gap_x, gap_y_rev, border_col,
-                          border_row, lens, eps, mode=mode, Lx=Lx, Ly=Ly)
+def wavefront(xs, ys, lens, eps, *, mode: str) -> Out:
+    """``(dist, hit, pruned)`` of each row pair, on the operands' device:
+    the plain version for CPU tensors, the CUDA kernel otherwise."""
+    if xs.device.type == "cpu":
+        return wavefront_torch(xs, ys, lens, eps, mode=mode)
+    return wavefront_cuda(xs, ys, lens, eps, mode=mode)
+
+
+def _cumsum_seq(t: torch.Tensor) -> torch.Tensor:
+    """Prefix sums along axis 1, left to right one add at a time — the
+    order of numpy's host wavefront on every device (a CUDA scan may
+    associate differently)."""
+    cols = [t[:, 0]]
+    for j in range(1, t.shape[1]):
+        cols.append(cols[-1] + t[:, j])
+    return torch.stack(cols, dim=1)
+
+
+def padded_layout(xs, ys, lens, mode: str):
+    """The reference's padded wavefront layout (its ``KernelSpec._wavefront``
+    prep), the first step of the plain version: x shift-padded so position
+    ``i`` holds ``x[i-1]``; y reversed and padded so diagonal ``k`` reads
+    window start ``Lx+1+Ly-k``; ERP gap costs zeroed past each row's own
+    length; ``BIG``-clamped border cumsums.  Returns ``(x_pad, y_rev_pad,
+    gap_x, gap_y_rev, border_col, border_row)`` and ``(Lx, Ly)``."""
+    xs = xs.to(torch.float32)  # lev tokens ride as exact small floats
+    ys = ys.to(torch.float32)
+    if xs.ndim == 2:
+        xs, ys = xs[..., None], ys[..., None]
+    B, Lx, d = xs.shape
+    Ly = ys.shape[1]
+    dev = xs.device
+    lx, ly = lens[:, 0].to(torch.int64), lens[:, 1].to(torch.int64)
+    Ypad = 2 * Lx + Ly + 1
+    x_pad = torch.zeros((B, Lx + 1, d), device=dev)
+    x_pad[:, 1:] = xs
+    y_rev_pad = torch.zeros((B, Ypad, d), device=dev)
+    y_rev_pad[:, Lx + 1:Lx + 1 + Ly] = ys.flip(1)
+    gap_x = torch.zeros((B, Lx + 1), device=dev)
+    gap_y_rev = torch.zeros((B, Ypad), device=dev)
+    if mode == "erp":
+        gx = torch.clamp_max(torch.sqrt(torch.clamp_min(
+            sum_last(xs * xs), 0.0)), BIG)
+        gy = torch.clamp_max(torch.sqrt(torch.clamp_min(
+            sum_last(ys * ys), 0.0)), BIG)
+        # zero the padding tail so border cumsums end at (len_x, len_y)
+        gx = torch.where(torch.arange(Lx, device=dev)[None, :]
+                         < lx[:, None], gx, 0.0)
+        gy = torch.where(torch.arange(Ly, device=dev)[None, :]
+                         < ly[:, None], gy, 0.0)
+        gap_x[:, 1:] = gx
+        gap_y_rev[:, Lx + 1:Lx + 1 + Ly] = gy.flip(1)
+        zero = torch.zeros((B, 1), device=dev)
+        # clamp: a cumsum above the BIG sentinel would corrupt the DP's
+        # quasi-infinity ordering (and overflow to inf three adds later)
+        border_col = torch.clamp_max(
+            torch.cat([zero, _cumsum_seq(gx)], dim=1), BIG)
+        border_row = torch.clamp_max(
+            torch.cat([zero, _cumsum_seq(gy)], dim=1), BIG)
+    elif mode == "lev":
+        border_col = torch.arange(Lx + 1, dtype=torch.float32,
+                                  device=dev).repeat(B, 1)
+        border_row = torch.arange(Ly + 1, dtype=torch.float32,
+                                  device=dev).repeat(B, 1)
+    else:
+        border_col = torch.full((B, Lx + 1), BIG, device=dev)
+        border_col[:, 0] = 0.0
+        border_row = torch.full((B, Ly + 1), BIG, device=dev)
+        border_row[:, 0] = 0.0
+    return (x_pad, y_rev_pad, gap_x, gap_y_rev, border_col,
+            border_row), (Lx, Ly)
 
 
 def _shift_right(v: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.full_like(v[:, :1], BIG), v[:, :-1]], dim=1)
 
 
-def wavefront_torch(x_pad, y_rev_pad, gap_x, gap_y_rev, border_col,
-                    border_row, lens, eps, *, mode: str, Lx: int,
-                    Ly: int) -> Out:
-    """The plain torch version: the per-diagonal loop of the reference's
-    ``_make_step`` in f32 torch ops, vectorised over rows and cells.
+def wavefront_torch(xs, ys, lens, eps, *, mode: str) -> Out:
+    """The plain torch version: :func:`padded_layout`, then the per-diagonal
+    loop of the reference's ``_make_step`` in f32 torch ops, vectorised over
+    rows and cells.
 
-    Same operands as the kernel (``lens`` ``(B, 2)`` int, ``eps`` ``(B,)``);
+    Same operands as the kernel (any integer or float dtype is taken);
     runs on any device.  Returns ``dist`` (``BIG`` where the row misses),
     ``hit`` and ``pruned`` as ``(B,)`` tensors."""
+    (x_pad, y_rev_pad, gap_x, gap_y_rev, border_col, border_row), (Lx, Ly) \
+        = padded_layout(xs, ys, lens, mode)
     B, W, d = x_pad.shape
     dev = x_pad.device
     ii = torch.arange(W, device=dev)
     lx = lens[:, 0:1].to(torch.int64)
     target = lx + lens[:, 1:2].to(torch.int64)
     eps = eps.reshape(B, 1)
-
     d1 = torch.full((B, W), BIG, device=dev)
     d1[:, 0] = border_col[:, 0]
     d2 = torch.full((B, W), BIG, device=dev)
@@ -135,7 +204,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.wavefront_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.wavefront_error_string.restype = ctypes.c_char_p
         lib.wavefront_error_string.argtypes = [ctypes.c_int]
@@ -154,45 +223,48 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def wavefront_cuda(x_pad, y_rev_pad, gap_x, gap_y_rev, border_col,
-                   border_row, lens, eps, *, mode: str, Lx: int,
-                   Ly: int) -> Out:
+def wavefront_cuda(xs, ys, lens, eps, *, mode: str) -> Out:
     """Launch the CUDA kernel on the current stream (asynchronous).
 
-    Checks device, dtype, shape and contiguity of every operand and raises
-    on anything the kernel does not take; raises if the launch is refused.
-    The library is built from ``csrc/wavefront.cu`` on first use."""
+    ``xs``/``ys`` are ``(B, Lx)``/``(B, Ly)`` f32 tokens for ``lev``, else
+    ``(B, Lx, d)``/``(B, Ly, d)`` f32; ``lens`` ``(B, 2)`` int32; ``eps``
+    ``(B,)`` f32.  Checks device, dtype, shape and contiguity of every
+    operand and raises on anything the kernel does not take; raises if the
+    launch is refused.  The library is built from ``csrc/wavefront.cu`` on
+    first use."""
     global LAUNCHES
     if mode not in MODE_IDS:
         raise ValueError(f"unknown wavefront mode {mode!r}")
-    dev = x_pad.device
+    dev = xs.device
     if dev.type != "cuda":
         raise ValueError(f"wavefront_cuda needs CUDA tensors; got {dev}")
-    if x_pad.ndim != 3:
-        raise ValueError(f"x_pad must be (B, Lx+1, d); got {x_pad.shape}")
-    B, W, d = x_pad.shape
-    if W != Lx + 1 or Lx < 1 or Ly < 1 or B < 1:
-        raise ValueError(f"bad dispatch shape B={B} W={W} Lx={Lx} Ly={Ly}")
-    Ypad = 2 * Lx + Ly + 1
-    f32 = torch.float32
-    _check("x_pad", x_pad, (B, W, d), f32, dev)
-    _check("y_rev_pad", y_rev_pad, (B, Ypad, d), f32, dev)
-    _check("gap_x", gap_x, (B, W), f32, dev)
-    _check("gap_y_rev", gap_y_rev, (B, Ypad), f32, dev)
-    _check("border_col", border_col, (B, W), f32, dev)
-    _check("border_row", border_row, (B, Ly + 1), f32, dev)
+    if mode == "lev":
+        if xs.ndim != 2:
+            raise ValueError(f"lev tokens must be (B, Lx); got {xs.shape}")
+        (B, Lx), d = xs.shape, 1
+        Ly = ys.shape[1] if ys.ndim == 2 else -1
+        yshape = (B, Ly)
+    else:
+        if xs.ndim != 3:
+            raise ValueError(f"xs must be (B, Lx, d); got {xs.shape}")
+        B, Lx, d = xs.shape
+        Ly = ys.shape[1] if ys.ndim == 3 else -1
+        yshape = (B, Ly, d)
+    if Lx < 1 or Ly < 1 or B < 1 or d < 1:
+        raise ValueError(f"bad dispatch shape B={B} Lx={Lx} Ly={Ly} d={d}")
+    _check("xs", xs, tuple(xs.shape), torch.float32, dev)
+    _check("ys", ys, yshape, torch.float32, dev)
     _check("lens", lens, (B, 2), torch.int32, dev)
-    _check("eps", eps, (B,), f32, dev)
-    dist = torch.empty(B, dtype=f32, device=dev)
+    _check("eps", eps, (B,), torch.float32, dev)
+    dist = torch.empty(B, dtype=torch.float32, device=dev)
     hit = torch.empty(B, dtype=torch.bool, device=dev)
     pruned = torch.empty(B, dtype=torch.bool, device=dev)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.wavefront_launch(
-        MODE_IDS[mode], x_pad.data_ptr(), y_rev_pad.data_ptr(),
-        gap_x.data_ptr(), gap_y_rev.data_ptr(), border_col.data_ptr(),
-        border_row.data_ptr(), lens.data_ptr(), eps.data_ptr(),
-        dist.data_ptr(), hit.data_ptr(), pruned.data_ptr(), B, Lx, Ly, d,
+        MODE_IDS[mode], xs.data_ptr(), ys.data_ptr(), lens.data_ptr(),
+        eps.data_ptr(), dist.data_ptr(), hit.data_ptr(), pruned.data_ptr(),
+        B, Lx, Ly, d,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream)
     if rc != 0:

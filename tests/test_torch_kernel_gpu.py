@@ -8,9 +8,9 @@ Imports only the port, so it runs on a machine without JAX:
 Tolerance: Levenshtein distances bit-equal; float modes ``rtol = atol =
 1e-5`` (the two versions run the same f32 operations in the same order;
 the plain version's run as separate CUDA kernels); hit and prune masks
-equal.  Pairwise L2: squared distances within ``(4d + 6) 2^-24 (|x|^2 +
-|y|^2)`` (two evaluations of the norm-and-dot formula in other summation
-orders; see ``test_torch_pairwise_l2.py``).
+equal.  Pairwise L2: squared distances within ``(9d + 26 + 6d 2^-8) 2^-24
+(|x|^2 + |y|^2)``, the worst case of the kernel's 3xTF32 products against
+the f32 plain version, derived in ``csrc/pairwise_l2.cu``.
 """
 
 import numpy as np
@@ -19,7 +19,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import pairwise_l2 as pl2  # noqa: E402
-from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels import wavefront as wf  # noqa: E402
 
 
@@ -31,38 +30,41 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _ragged(string, B, Lx, Ly, rng, d):
+def _ragged(string, B, Lx, Ly, rng, d, dev, nonzero=False):
+    """The kernel's operands: rows as they are (``nonzero``: seeded
+    non-zero content past each row's lengths), lengths ``(B, 2)``."""
     lx = rng.integers(1, Lx + 1, B)
     ly = rng.integers(1, Ly + 1, B)
     lx[0], ly[0] = Lx, Ly  # the dispatch's widths are the row maxima
     if string:
-        xs = rng.integers(0, 6, size=(B, Lx))
-        ys = rng.integers(0, 6, size=(B, Ly))
+        xs = rng.integers(0, 6, size=(B, Lx)).astype(np.float32)
+        ys = rng.integers(0, 6, size=(B, Ly)).astype(np.float32)
     else:
         xs = rng.normal(size=(B, Lx, d)).astype(np.float32)
         ys = rng.normal(size=(B, Ly, d)).astype(np.float32)
-    for i in range(B):
-        xs[i, lx[i]:] = 0
-        ys[i, ly[i]:] = 0
-    return xs, ys, lx, ly
+    if not nonzero:
+        for i in range(B):
+            xs[i, lx[i]:] = 0
+            ys[i, ly[i]:] = 0
+    lens = np.stack([lx, ly], 1).astype(np.int32)
+    return [torch.as_tensor(a, device=dev) for a in (xs, ys, lens)]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nonzero", [False, True])
 @pytest.mark.parametrize("mode,B,Lx,Ly,d", [
     ("lev", 257, 22, 20, 1), ("erp", 129, 13, 9, 2), ("dtw", 64, 100, 80, 3),
     ("dfd", 33, 40, 31, 2), ("erp", 2, 1100, 1000, 2)])
-def test_cuda_kernel_matches_plain_version(cuda_device, mode, B, Lx, Ly, d):
+def test_cuda_kernel_matches_plain_version(cuda_device, mode, B, Lx, Ly, d,
+                                           nonzero):
     rng = np.random.default_rng(B)
-    xs, ys, lx, ly = _ragged(mode == "lev", B, Lx, Ly, rng, d)
-    spec = registry.spec_for_mode(mode)
-    ops, (Wx, Wy) = spec.layout(
-        *(torch.as_tensor(a, device=cuda_device) for a in (xs, ys, lx, ly)))
+    ops = _ragged(mode == "lev", B, Lx, Ly, rng, d, cuda_device, nonzero)
     inf = torch.full((B,), float("inf"), device=cuda_device)
-    exact = wf.wavefront_torch(*ops, inf, mode=mode, Lx=Wx, Ly=Wy)[0]
+    exact = wf.wavefront_torch(*ops, inf, mode=mode)[0]
     eps = torch.quantile(exact, 0.5).expand(B).contiguous()
     before = wf.LAUNCHES
-    got = wf.wavefront_cuda(*ops, eps, mode=mode, Lx=Wx, Ly=Wy)
-    want = wf.wavefront_torch(*ops, eps, mode=mode, Lx=Wx, Ly=Wy)
+    got = wf.wavefront_cuda(*ops, eps, mode=mode)
+    want = wf.wavefront_torch(*ops, eps, mode=mode)
     torch.cuda.synchronize()
     assert wf.LAUNCHES == before + 1
     if mode == "lev":
@@ -75,21 +77,17 @@ def test_cuda_kernel_matches_plain_version(cuda_device, mode, B, Lx, Ly, d):
 
 @pytest.mark.gpu
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
-    xs = np.zeros((4, 6), np.int64)
-    ops, (Lx, Ly) = registry.get("levenshtein").layout(
-        torch.as_tensor(xs, device=cuda_device),
-        torch.as_tensor(xs, device=cuda_device),
-        torch.full((4,), 6, device=cuda_device),
-        torch.full((4,), 6, device=cuda_device))
+    xs, ys, lens = _ragged(True, 4, 6, 6, np.random.default_rng(0), 1,
+                           cuda_device)
     eps = torch.zeros(4, device=cuda_device)
     with pytest.raises(ValueError, match="dtype"):
-        wf.wavefront_cuda(*ops, eps.double(), mode="lev", Lx=Lx, Ly=Ly)
+        wf.wavefront_cuda(xs, ys, lens, eps.double(), mode="lev")
+    with pytest.raises(ValueError, match="dtype"):
+        wf.wavefront_cuda(xs.long(), ys.long(), lens, eps, mode="lev")
     with pytest.raises(ValueError, match="contiguous"):
-        bad = list(ops)
-        bad[1] = ops[1].transpose(0, 1).contiguous().transpose(0, 1)
-        wf.wavefront_cuda(*bad, eps, mode="lev", Lx=Lx, Ly=Ly)
+        wf.wavefront_cuda(xs, ys.T.contiguous().T, lens, eps, mode="lev")
     with pytest.raises(ValueError, match="shape"):
-        wf.wavefront_cuda(*ops, eps, mode="lev", Lx=Lx, Ly=Ly + 1)
+        wf.wavefront_cuda(xs, ys, lens[:3], eps, mode="lev")
 
 
 @pytest.mark.gpu
@@ -126,8 +124,8 @@ def test_pairwise_l2_kernel_matches_plain_version(cuda_device, M, N, d):
     torch.cuda.synchronize()
     assert pl2.LAUNCHES == before + 1
     assert got.shape == (M, N) and torch.isfinite(got).all()
-    bound = (4 * d + 6) * 2.0 ** -24 * ((x * x).sum(1)[:, None]
-                                         + (y * y).sum(1)[None, :])
+    bound = (9 * d + 26 + 6 * d * 2.0 ** -8) * 2.0 ** -24 * (
+        (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :])
     assert ((got.double() ** 2 - want.double() ** 2).abs()
             <= bound.double()).all()
 

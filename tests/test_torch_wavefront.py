@@ -185,18 +185,91 @@ def test_pack_meta_is_a_stable_bucket_sort():
     assert meta.offsets == (0, 2, 3, 4)
 
 
+def _unpadded(name, xs, ys, lx, ly):
+    """The kernel's operands: rows as they are, f32 tokens or f32 series
+    ``(B, L, d)``, lengths ``(B, 2)`` int32."""
+    if ref_get(name).string:
+        xs, ys = (torch.as_tensor(a.astype(np.float32)) for a in (xs, ys))
+    else:
+        xs, ys = torch.as_tensor(xs), torch.as_tensor(ys)
+    return xs, ys, torch.as_tensor(np.stack([lx, ly], 1).astype(np.int32))
+
+
+@pytest.mark.parametrize("name", MODES4)
+def test_plain_version_on_unpadded_operands_with_nonzero_padding(name):
+    """Content past each row's own lengths is the dispatch's padding: it
+    feeds the costs of the padding cells, and through them the prune
+    certificate, exactly as in the reference's padded layout (ERP gaps are
+    zeroed there, costs are not)."""
+    rng = np.random.default_rng(44)
+    B, Lx, Ly = 64, 9, 8
+    xs, ys, lx, ly = _ragged(name, B, Lx, Ly, rng)
+    lx[0], ly[0] = Lx, Ly  # the dispatch's widths are the row maxima
+    for i in range(B):  # seeded non-zero padding
+        if ref_get(name).string:
+            xs[i, lx[i]:] = rng.integers(1, 6, Lx - lx[i])
+            ys[i, ly[i]:] = rng.integers(1, 6, Ly - ly[i])
+        else:
+            xs[i, lx[i]:] = rng.normal(size=(Lx - lx[i], 2)) * 10
+            ys[i, ly[i]:] = rng.normal(size=(Ly - ly[i], 2)) * 10
+    exact = ref_registry.get(name).batch(xs, ys, lx, ly, exec="scan").dist
+    eps_v = np.full(B, np.float32(np.quantile(exact, 0.4)))
+    eps_v[0::4] = np.inf
+    ref = ref_registry.get(name).batch(xs, ys, lx, ly, eps=eps_v,
+                                       exec="scan")
+    mode = registry.MODE_OF_NAME[name]
+    got = wf.wavefront_torch(*_unpadded(name, xs, ys, lx, ly),
+                             torch.as_tensor(eps_v), mode=mode)
+    _assert_match(name, registry.KernelOut(*(t.numpy() for t in got)), ref)
+    assert ref.pruned.any() and ref.hit.any()
+    if name == "erp":  # zero gaps past the lengths carry the valid cells'
+        return         # values into the padding: its content rarely shows
+    # the padding matters: zeroing it changes some prune verdict
+    zx, zy = xs.copy(), ys.copy()
+    for i in range(B):
+        zx[i, lx[i]:] = 0
+        zy[i, ly[i]:] = 0
+    zero = ref_registry.get(name).batch(zx, zy, lx, ly, eps=eps_v,
+                                        exec="scan")
+    assert (zero.pruned != ref.pruned).any()
+
+
 def test_cpu_tensors_take_the_plain_version_cuda_wrapper_refuses_them():
     rng = np.random.default_rng(4)
     xs, ys, lx, ly = _ragged("erp", 5, 6, 6, rng)
-    spec = registry.get("erp")
-    ops, (Lx, Ly) = spec.layout(torch.as_tensor(xs), torch.as_tensor(ys),
-                                torch.as_tensor(lx), torch.as_tensor(ly))
+    lx[0], ly[0] = 6, 6
+    ops = _unpadded("erp", xs, ys, lx, ly)
     eps = torch.full((5,), float("inf"))
     before = wf.LAUNCHES
-    got = wf.wavefront(*ops, eps, mode="erp", Lx=Lx, Ly=Ly)
-    want = wf.wavefront_torch(*ops, eps, mode="erp", Lx=Lx, Ly=Ly)
+    got = wf.wavefront(*ops, eps, mode="erp")
+    want = wf.wavefront_torch(*ops, eps, mode="erp")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        wf.wavefront_cuda(*ops, eps, mode="erp", Lx=Lx, Ly=Ly)
+        wf.wavefront_cuda(*ops, eps, mode="erp")
     assert wf.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32,
+                                   np.float64])
+def test_levenshtein_tokens_of_any_dtype_reach_the_kernel_as_f32(
+        dtype, monkeypatch):
+    """Tokens ride as f32 ``(B, L)`` on every device, as in the reference:
+    the registry hands the kernel wrapper the same operands whatever the
+    tokens' dtype, and the answers are the reference's."""
+    rng = np.random.default_rng(45)
+    xs, ys, lx, ly = _ragged("levenshtein", 16, 7, 6, rng)
+    xs, ys = xs.astype(dtype), ys.astype(dtype)
+    seen = []
+
+    def spy(xs_t, ys_t, lens, eps, *, mode):
+        seen.append((xs_t.dtype, ys_t.dtype, xs_t.shape, ys_t.shape))
+        return wf.wavefront(xs_t, ys_t, lens, eps, mode=mode)
+
+    monkeypatch.setattr(registry, "wavefront", spy)
+    eps_v = np.full(16, _eps_mid("levenshtein", xs, ys, lx, ly), np.float32)
+    got = _port("levenshtein", xs, ys, lx, ly, eps_v)
+    assert seen == [(torch.float32, torch.float32, (16, 7), (16, 6))]
+    ref = ref_registry.get("levenshtein").batch(xs, ys, lx, ly, eps=eps_v,
+                                                exec="scan")
+    _assert_match("levenshtein", got, ref)
