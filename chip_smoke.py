@@ -17,12 +17,25 @@ version on the card.  Then it drives the port's two paths:
   all-pairs matrix of the probes against the database through
   ``ops.pairwise_l2`` (the index itself launches no pairwise kernel, which
   is checked); the range hits are held against that matrix and, at a cut
-  size, hits and counts against the numpy backend.
+  size, hits and counts against the numpy backend;
+* the elastic fleet (``execution="fleet"``): at a cut size (phase 7) its
+  round-based, host-loop and one-shot paths against brute force and the
+  numpy backend, and the envelope cascade on and off (the device envelope
+  tier and the one-shot stage's bounds against the host's); at cell A's
+  window size (phase 8, ``--windows-fleet``) the build, rounds and
+  one-shot queries, a dead worker and a 4 -> 5 -> 4 resize held to 2/N of
+  the build's evaluations;
+* the continuous-batching serve engine on that fleet (phase 9): a seeded
+  virtual-clock schedule against the sequential rounds oracle, wall-clock
+  serving across a background snapshot-swap resize, and the serve CLI.
 
 The wavefront kernel takes each dispatch's rows as they are (the run fails
 if the reference's padded layout is built on the card path), and the
 pairwise kernel runs its products as 3xTF32 on the tensor cores, held to
-the plain version within a derived bound.  Both kernels are timed at their
+the plain version within a derived bound.  Every path is driven with the
+launch counts zeroed just before it, and its launches are held to what it
+must launch: one per counted dispatch or merged round, one plus at most
+one per one-shot fleet query.  Both kernels are timed at their
 paths' shapes, with their registers, shared memory and spills.  Each phase
 prints one line; any failure raises and the script exits non-zero.  The
 last line is
@@ -917,6 +930,491 @@ def phase_l2_timing(torch, pl2, build, dev, main_x, main_y) -> list:
     return rows
 
 
+# -- phases 7-9: the elastic fleet and the serve engine ------------------------
+
+FLEET_WORKERS = ["w0", "w1", "w2", "w3"]
+
+
+def mutate(data, n, seed, rate=0.1):
+    """Database rows perturbed into near-miss queries (token flips or
+    Gaussian noise), as the reference's benchmarks make them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    qs = data[rng.integers(0, len(data), n)].copy()
+    if data.dtype.kind in "iu":
+        flips = rng.random(qs.shape) < rate
+        qs[flips] = rng.integers(0, int(data.max()) + 1, flips.sum())
+    else:
+        qs += rng.normal(scale=rate * np.std(data),
+                         size=qs.shape).astype(qs.dtype)
+    return qs
+
+
+def fleet_config(name, dev, workers=FLEET_WORKERS, **kw):
+    from repro_torch.retrieval import RetrievalConfig
+    return RetrievalConfig(name, execution="fleet", workers=list(workers),
+                           tight_bounds=True, device=str(dev), **kw)
+
+
+def shard_dispatches(fleet):
+    """(query dispatches, build dispatches) over the fleet's live shards."""
+    shards = [s for s in fleet.shards.values() if s is not None]
+    return (sum(s.net.counter.dispatches for s in shards),
+            sum(s.net.counter.build_dispatches for s in shards))
+
+
+def fleet_query(torch, wf, dispatch, r, qs, eps, via, label, dead=(),
+                lb=None):
+    """One facade fleet query, driven with the counts zeroed just before;
+    checks its launches against what the path must launch: one per merged
+    round (rounds), one per counted dispatch (the host loop), one for the
+    query x pivot rows plus one when any survivor is left (one-shot).
+    Returns (ResultSet, seconds, launches, kernel seconds)."""
+    fleet = r.elastic().index
+    ds0 = dict(fleet.device_stats)
+    qd0 = shard_dispatches(fleet)[0]
+    plan = r.batch(qs).via(via)
+    if dead:
+        plan = plan.dead(*dead)
+    if lb is not None:
+        plan = plan.lb(lb)
+    rs, s, launches, ks, _ = drive(torch, wf, dispatch, label,
+                                   lambda: plan.range(eps))
+    ds = fleet.device_stats
+    if via == "fleet-rounds":
+        # one launch per merged round; a round whose every row the
+        # envelope tier pruned launches nothing
+        want = ds["rounds"] - ds0["rounds"]
+        ok = launches == dispatch.STATS.dispatches and (
+            launches <= want if lb == "envelope" else launches == want)
+        if not ok:
+            raise AssertionError(f"{label}: {launches} launches, "
+                                 f"{dispatch.STATS.dispatches} dispatches, "
+                                 f"{want} merged rounds")
+    elif via == "host":
+        want = shard_dispatches(fleet)[0] - qd0
+        if not launches == dispatch.STATS.dispatches == want:
+            raise AssertionError(f"{label}: {launches} launches != {want} "
+                                 "counted dispatches")
+    else:
+        want = 1 + int(ds["member_evals"] > ds0["member_evals"])
+        if launches != want or dispatch.STATS.dispatches:
+            raise AssertionError(f"{label}: one-shot launched {launches} "
+                                 f"times, expected {want}")
+    return rs, s, launches, ks
+
+
+def unfused(stats: dict) -> dict:
+    return {k: v for k, v in stats.items() if k != "fused_pruned"}
+
+
+def brute_hits(fleet, qs, eps):
+    """Global hit ids per query by brute force: ``host_reference_hits`` (the
+    numpy oracle) over the merged FlatNet, columns mapped through gids."""
+    import numpy as np
+    from repro_torch.core.distributed import host_reference_hits, merge_flats
+    alive = [fleet.shards[w] for w in fleet.workers
+             if fleet.shards.get(w) is not None]
+    merged, _ = merge_flats([s.flat for s in alive])
+    gids = np.concatenate([s.gids for s in alive])
+    H = host_reference_hits(merged, qs, eps)
+    return [sorted(int(g) for g in gids[row]) for row in H]
+
+
+def phase_fleet_parity(torch, wf, dispatch, dev) -> int:
+    """Phase 7, at a cut size: the fleet's paths on the card against the
+    host loop, brute force and the numpy backend; the envelope tier."""
+    import numpy as np
+    from repro_torch.core.distributed import _envelope_rows, merge_flats
+    from repro_torch.data.synthetic import proteins, trajectories
+    from repro_torch.distances import bounds, get
+    from repro_torch.kernels import registry
+    from repro_torch.retrieval import RetrievalConfig, Retriever
+    t0 = time.perf_counter()
+    launches_total = 0
+
+    # Levenshtein: rounds, host loop, one-shot, brute force, numpy backend
+    data = proteins(1200, seed=0)
+    qs = mutate(data, 32, seed=3)
+    rk = Retriever.build(fleet_config("levenshtein", dev), data)
+    rn = Retriever.build(fleet_config("levenshtein", dev, backend="numpy"),
+                         data)
+    if rk.eval_stats() != rn.eval_stats():
+        raise AssertionError(f"fleet build counts differ {rk.eval_stats()}"
+                             f" vs {rn.eval_stats()}")
+    want = brute_hits(rk.elastic().index, qs, 2.0)
+    for via in ("fleet-rounds", "host", "fleet-oneshot"):
+        rs, s, launches, _ = fleet_query(torch, wf, dispatch, rk, qs, 2.0,
+                                         via, f"fleet7-{via}")
+        launches_total += launches
+        ref = rn.batch(qs).via(via).range(2.0)
+        if rs.hits != want or ref.hits != want:
+            raise AssertionError(f"fleet {via}: hits differ from brute "
+                                 "force / the numpy backend")
+        if rs.stats != ref.stats:
+            raise AssertionError(f"fleet {via}: stats {rs.stats} vs numpy "
+                                 f"{ref.stats}")
+        log("fleet7-lev", via=via, windows=len(data), queries=len(qs),
+            hits=sum(map(len, rs.hits)), launches=launches,
+            stats=json.dumps(rs.stats), s=f"{s:.2f}")
+    # every count but ``fused_pruned``: the numpy backend evaluates rounds
+    # without fused ε, so it certifies no early prunes there
+    for a, b, what in ((unfused(rk.elastic().device_stats),
+                        unfused(rn.elastic().device_stats), "device_stats"),
+                       (rk.elastic().index.eval_count(),
+                        rn.elastic().index.eval_count(), "eval_count")):
+        if a != b:
+            raise AssertionError(f"fleet {what}: {a} vs numpy {b}")
+    log("fleet7-lev-counts", device_stats=json.dumps(
+        rk.elastic().device_stats), eval_count=json.dumps(
+        rk.elastic().index.eval_count()))
+
+    # ERP: the envelope cascade on and off — fleet rounds, one-shot, and
+    # the counter's tier in window mode (batched linear scan)
+    data = trajectories(1200, seed=0)
+    qs = mutate(data, 32, seed=3, rate=0.003)  # noise ~0.02: hits at eps 1
+    fk = Retriever.build(fleet_config("erp", dev), data)
+    fn = Retriever.build(fleet_config("erp", dev, backend="numpy"), data)
+    wk = Retriever.build(RetrievalConfig("erp", index="linear",
+                                         device=str(dev)), data)
+    wn = Retriever.build(RetrievalConfig("erp", index="linear",
+                                         backend="numpy", device=str(dev)),
+                         data)
+    base = None
+    for lb in ("off", "envelope"):
+        for via in ("fleet-rounds", "fleet-oneshot"):
+            rs, s, launches, _ = fleet_query(
+                torch, wf, dispatch, fk, qs, 1.0, via,
+                f"fleet7-erp-{via}-{lb}", lb=lb)
+            launches_total += launches
+            ref = fn.batch(qs).via(via).lb(lb).range(1.0)
+            base = rs.hits if base is None else base
+            if rs.hits != base or ref.hits != base or rs.stats != ref.stats:
+                raise AssertionError(f"erp fleet {via} lb={lb}: hits or "
+                                     "stats differ")
+            log("fleet7-erp", via=via, lb=lb, hits=sum(map(len, rs.hits)),
+                launches=launches, stats=json.dumps(rs.stats),
+                s=f"{s:.2f}")
+        dispatch.STATS.reset()
+        wf.LAUNCHES = 0
+        got = wk.batch(qs).via("batched").lb(lb).range(1.0)
+        env_rows = dispatch.STATS.lb_rows.get("envelope", 0)
+        ref = wn.batch(qs).via("batched").lb(lb).range(1.0)
+        if got.hits != base or ref.hits != base or got.stats != ref.stats:
+            raise AssertionError(f"erp window mode lb={lb}: hits or counts "
+                                 f"differ {got.stats} vs {ref.stats}")
+        if lb == "envelope" and not env_rows:
+            raise AssertionError("the device envelope tier never ran")
+        log("fleet7-erp-window", lb=lb, stats=json.dumps(got.stats),
+            device_envelope_rows=env_rows,
+            device_envelope_pruned=dispatch.STATS.lb_pruned.get(
+                "envelope", 0))
+    for a, b, what in (
+            (unfused(fk.elastic().device_stats),
+             unfused(fn.elastic().device_stats), "fleet device_stats"),
+            ((wk.counter.lb_tier_rows, wk.counter.lb_tier_pruned),
+             (wn.counter.lb_tier_rows, wn.counter.lb_tier_pruned),
+             "window tier maps")):
+        if a != b:
+            raise AssertionError(f"erp {what}: {a} vs numpy {b}")
+    ds = fk.elastic().device_stats
+    if not ds["lb_pruned"]:
+        raise AssertionError("the fleet envelope stage pruned nothing")
+
+    # the device envelope bounds against the host's on every query x window
+    fleet = fk.elastic().index
+    merged, _ = merge_flats([fleet.shards[w].flat for w in fleet.workers])
+    e = merged.envelopes
+    Q, N = len(qs), len(merged.data)
+    q_of = np.repeat(np.arange(Q), N)
+    w_of = np.tile(np.arange(N), Q)
+    lens = np.full(Q * N, qs.shape[1])
+    host = bounds.lb_envelope_rows("erp", qs[q_of], lens, e.lo[w_of],
+                                   e.hi[w_of], e.mass[w_of])
+    t = {k: torch.as_tensor(v, device=dev) for k, v in
+         (("q", qs[q_of]), ("l", lens), ("lo", e.lo[w_of]),
+          ("hi", e.hi[w_of]), ("m", e.mass[w_of]))}
+    devb = _envelope_rows("erp", t["q"], t["l"], t["lo"], t["hi"],
+                          t["m"]).cpu().numpy()
+    two = registry.get_envelope("erp").batch(
+        qs[q_of], torch.as_tensor(merged.data, device=dev)[
+            torch.as_tensor(w_of, device=dev)], eps=1.0).dist.cpu().numpy()
+    host2 = get("erp").envelope_bound(qs[q_of], merged.data[w_of],
+                                      y_env=e.take(w_of))
+    # f32 sums of 20 terms in another order differ by a few ulps of the
+    # summed magnitudes, and ERP's gap-mass terms are differences of such
+    # sums (|sum g(x) - mass| cancels), so the error is held relative to
+    # the summed magnitudes: the row norms of the query and the candidate
+    gq = np.sqrt((qs[q_of].astype(np.float64) ** 2).sum(-1)).sum(1)
+    scale = gq + e.mass[w_of]
+    errs = {}
+    for a, b, what in ((devb, host, "one-shot stage"),
+                       (two, host2, "lb:erp spec")):
+        d = np.abs(a.astype(np.float64) - b)
+        errs[what] = (float((d / np.maximum(np.abs(b), 1e-6)).max()),
+                      float((d / np.maximum(scale, np.abs(b))).max()))
+        if errs[what][1] > 1e-5:
+            raise AssertionError(f"device envelope ({what}) off the host's "
+                                 f"by {errs[what][1]:.3g} of its scale")
+    log("fleet7-envelope-bounds", rows=Q * N,
+        rel_err_oneshot_stage=f"{errs['one-shot stage'][0]:.3g}",
+        scaled_err_oneshot_stage=f"{errs['one-shot stage'][1]:.3g}",
+        rel_err_lb_spec=f"{errs['lb:erp spec'][0]:.3g}",
+        scaled_err_lb_spec=f"{errs['lb:erp spec'][1]:.3g}",
+        tol=repr("|d| <= 1e-5 (sum|q_i| + mass)"),
+        lb_rows=ds["lb_rows"], lb_pruned=ds["lb_pruned"],
+        s=f"{time.perf_counter() - t0:.2f}")
+    return launches_total
+
+
+def phase_fleet_full(torch, wf, dispatch, args, dev) -> dict:
+    """Phase 8: the fleet at cell A's window size: build, rounds and
+    one-shot queries, a dead worker, resize 4 -> 5 -> 4."""
+    import numpy as np
+    from repro_torch.data.synthetic import proteins
+    from repro_torch.launch.elastic import moved_fraction
+    from repro_torch.retrieval import Retriever
+    t_phase = time.perf_counter()
+    data = proteins(args.windows_fleet, seed=0)
+    cfg = fleet_config("levenshtein", dev)
+    r, s, launches, ks, rows = drive(torch, wf, dispatch, "fleet-build",
+                                     lambda: Retriever.build(cfg, data))
+    fleet = r.elastic().index
+    build_disp = shard_dispatches(fleet)[1]
+    if launches != build_disp or dispatch.STATS.dispatches != build_disp:
+        raise AssertionError(f"fleet build: {launches} launches != "
+                             f"{build_disp} build dispatches")
+    full_build = r.eval_stats()["build"]
+    total = launches
+    log("fleet8-build", windows=len(data), workers=len(fleet.workers),
+        shard_windows=json.dumps([len(fleet.assignment[w])
+                                  for w in fleet.workers]),
+        pivots=json.dumps([fleet.shards[w].flat.n_pivots
+                           for w in fleet.workers]),
+        build_s=f"{s:.2f}", host_s=f"{s - ks:.2f}", kernel_s=f"{ks:.4f}",
+        build_evals=full_build, build_dispatches=build_disp,
+        launches=launches, rows_mean=f"{np.mean(rows):.0f}",
+        rows_max=max(rows))
+    row = dict(build_s=s, build_kernel_s=ks, build_evals=full_build,
+               build_launches=launches)
+
+    qs = mutate(data, 64, seed=5)
+    res = {}
+    for via in ("fleet-rounds", "fleet-oneshot"):
+        ds0 = dict(fleet.device_stats)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rs, s, launches, ks = fleet_query(torch, wf, dispatch, r, qs, 2.0,
+                                          via, f"fleet8-{via}")
+        peak = torch.cuda.max_memory_allocated(dev) - base_mem
+        total += launches
+        res[via] = rs.hits
+        ds = fleet.device_stats
+        extra = {}
+        if via == "fleet-oneshot":
+            merged = fleet._merged[1][0]
+            P, M = merged.members.shape
+            # lo, hi (f32) and four (Q, P, M) masks; dp and three (Q, P)
+            # masks; the (Q, N) hit mask
+            reckoned = len(qs) * P * M * (2 * 4 + 4) \
+                + len(qs) * P * (4 + 3) + len(qs) * len(merged.data)
+            extra = dict(Q=len(qs), P=P, M=M, qpm_bytes=reckoned,
+                         peak_bytes=peak,
+                         survivors=ds["member_evals"] - ds0["member_evals"])
+            row.update(oneshot_s=s, oneshot_kernel_s=ks,
+                       oneshot_evals=rs.stats["device_evals"],
+                       oneshot_launches=launches, qpm_bytes=reckoned,
+                       peak_bytes=peak)
+        else:
+            extra = dict(rounds=ds["rounds"] - ds0["rounds"])
+            row.update(rounds_s=s, rounds_kernel_s=ks,
+                       rounds_evals=rs.stats["device_evals"],
+                       rounds_launches=launches,
+                       rounds=ds["rounds"] - ds0["rounds"])
+        log("fleet8-query", via=via, queries=len(qs),
+            hits=sum(map(len, rs.hits)), device_evals=rs.stats[
+                "device_evals"], launches=launches, s=f"{s:.2f}",
+            host_s=f"{s - ks:.2f}", kernel_s=f"{ks:.4f}", **extra)
+    if res["fleet-rounds"] != res["fleet-oneshot"]:
+        raise AssertionError("fleet: rounds and one-shot hits differ")
+    full = res["fleet-rounds"]
+
+    lost = set(fleet.assignment["w1"])
+    survivors = [[h for h in hs if h not in lost] for hs in full]
+    for via in ("fleet-rounds", "fleet-oneshot"):
+        rs, s, launches, _ = fleet_query(torch, wf, dispatch, r, qs, 2.0,
+                                         via, f"fleet8-dead-{via}",
+                                         dead=("w1",))
+        total += launches
+        if rs.hits != survivors:
+            raise AssertionError(f"dead w1 ({via}): hits are not the "
+                                 "survivors' union")
+        log("fleet8-dead", via=via, dead="w1",
+            hits=sum(map(len, rs.hits)), lost_hits=sum(map(len, full))
+            - sum(map(len, survivors)), launches=launches, s=f"{s:.2f}")
+
+    for workers in (FLEET_WORKERS + ["w4"], FLEET_WORKERS):
+        before = dict(fleet.assignment)
+        b0 = r.eval_stats()["build"]
+        frac, s, launches, ks, _ = drive(
+            torch, wf, dispatch, f"resize{len(workers)}",
+            lambda: r.elastic().resize(workers))
+        spent = r.eval_stats()["build"] - b0
+        if launches != dispatch.STATS.dispatches:
+            raise AssertionError("resize: launches != dispatches")
+        if frac != moved_fraction(before, fleet.assignment):
+            raise AssertionError("resize: moved fraction mismatch")
+        if spent > 2.0 / len(FLEET_WORKERS) * full_build:
+            raise AssertionError(f"resize to {len(workers)}: re-spent "
+                                 f"{spent} > 2/N of {full_build}")
+        total += launches
+        row[f"resize_to_{len(workers)}"] = dict(
+            moved=frac, build_frac=spent / full_build, s=s, launches=launches)
+        log("fleet8-resize", workers=len(workers), moved_fraction=frac,
+            build_evals=spent, build_frac=f"{spent / full_build:.4f}",
+            gate="2/N = 0.5", launches=launches, s=f"{s:.2f}",
+            host_s=f"{s - ks:.2f}", kernel_s=f"{ks:.4f}")
+    for via in ("fleet-rounds", "fleet-oneshot"):
+        rs, s, launches, _ = fleet_query(torch, wf, dispatch, r, qs, 2.0,
+                                         via, f"fleet8-after-{via}")
+        total += launches
+        if rs.hits != full:
+            raise AssertionError(f"after 4 -> 5 -> 4 ({via}): hit sets "
+                                 "changed")
+    log("fleet8-done", round_trip_hits="equal", launches=total,
+        s=f"{time.perf_counter() - t_phase:.2f}")
+    row["launches"] = total
+    return {"retriever": r, "data": data, "row": row}
+
+
+def phase_serve(torch, wf, dispatch, dev, fleet8) -> dict:
+    """Phase 9: continuous batching on the phase-8 fleet — a virtual-clock
+    schedule against the sequential rounds oracle, then wall-clock serving
+    across a snapshot-swap resize, then the serve CLI once."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import (OpenLoopLoadGen, ServeConfig,
+                                   ServeEngine, poisson_schedule)
+    t_phase = time.perf_counter()
+    r, data = fleet8["retriever"], fleet8["data"]
+    fleet = r.elastic().index
+    qs = mutate(data, 256, seed=9)
+    arrivals = poisson_schedule(16.0, 2 * len(qs) / 16.0, seed=7)[:len(qs)]
+    if len(arrivals) < len(qs):
+        raise ValueError("the Poisson schedule came up short")
+
+    r0 = fleet.device_stats["rounds"]
+    seq, s_seq, l_seq, k_seq, _ = drive(
+        torch, wf, dispatch, "serve-sequential",
+        lambda: [fleet.range_query_batch([q], 2.0)[0] for q in qs])
+    seq_rounds = fleet.device_stats["rounds"] - r0
+    if l_seq != seq_rounds:
+        raise AssertionError(f"sequential: {l_seq} launches != "
+                             f"{seq_rounds} rounds")
+    eng = r.serve(2.0)
+    reqs, s_cont, l_cont, k_cont, _ = drive(
+        torch, wf, dispatch, "serve-continuous",
+        lambda: eng.run_schedule(qs, arrivals))
+    st = eng.engine_stats()
+    if [q.hits for q in reqs] != seq:
+        raise AssertionError("continuous batching drifted from the "
+                             "sequential rounds oracle")
+    if l_cont != st["rounds"] or dispatch.STATS.dispatches != st["rounds"]:
+        raise AssertionError(f"continuous: {l_cont} launches != "
+                             f"{st['rounds']} merged rounds")
+    if not st["rounds"] / len(qs) < seq_rounds / len(qs):
+        raise AssertionError(f"shared rounds are not real: {st['rounds']}"
+                             f" vs {seq_rounds} sequential")
+    lat = eng.latency_stats()
+    log("serve9-virtual", requests=len(qs), qps=16, eps=2.0,
+        seq_rounds=seq_rounds, seq_rounds_per_q=f"{seq_rounds / len(qs):.3f}",
+        merged_rounds=st["rounds"],
+        merged_rounds_per_q=f"{st['rounds'] / len(qs):.3f}",
+        p50=lat["p50"], p95=lat["p95"], p99=lat["p99"],
+        mean_rounds=f"{lat['mean_rounds']:.2f}", seq_s=f"{s_seq:.2f}",
+        seq_kernel_s=f"{k_seq:.4f}", cont_s=f"{s_cont:.2f}",
+        cont_kernel_s=f"{k_cont:.4f}", launches=l_seq + l_cont)
+    row = dict(seq_rounds=seq_rounds, merged_rounds=st["rounds"],
+               requests=len(qs), p50=lat["p50"], p95=lat["p95"],
+               p99=lat["p99"], seq_s=s_seq, cont_s=s_cont,
+               cont_kernel_s=k_cont)
+    launches = l_seq + l_cont
+
+    # wall clock: 32 requests over about 8 s (a resize at cell A's size
+    # takes about 5 s on the H100's host, so requests arrive and are in
+    # flight on both sides of the swap), a background resize to 5 workers
+    # started with them, and 32 more once the resharded clone has swapped
+    # in; launches of both threads are checked against the dispatches of
+    # both (no per-launch events)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-snap-") as d:
+        eng2 = ServeEngine(fleet, ServeConfig(eps=2.0, snapshot_dir=d))
+        dispatch.STATS.reset()
+        wf.LAUNCHES = 0
+        t0 = time.perf_counter()
+        eng2.start()
+        first = OpenLoopLoadGen(eng2, qs[:32], qps=4.0, seed=0).start()
+        eng2.resize(FLEET_WORKERS + ["w4"], block=False)
+        reqs = first.join(timeout=300)
+        deadline = time.monotonic() + 300
+        while eng2.swaps == 0 and eng2.error is None \
+                and time.monotonic() < deadline:
+            time.sleep(1e-3)
+        swap_at = time.monotonic()   # the engine's clock
+        t_swap = time.perf_counter() - t0
+        second = OpenLoopLoadGen(eng2, qs[32:64], qps=32.0, seed=1).start()
+        reqs = reqs + second.join(timeout=300)
+        eng2.close(drain=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    wall_launches = wf.LAUNCHES
+    failed = sum(1 for q in reqs if q.failed or not q.done)
+    mismatched = sum(1 for q, want in zip(reqs, seq[:64])
+                     if q.done and not q.failed and q.hits != want)
+    if eng2.swaps != 1 or failed or mismatched or len(reqs) != 64:
+        raise AssertionError(f"wall clock: swaps={eng2.swaps} "
+                             f"failed={failed} mismatched={mismatched}")
+    if wall_launches != dispatch.STATS.dispatches:
+        raise AssertionError(f"wall clock: {wall_launches} launches != "
+                             f"{dispatch.STATS.dispatches} dispatches of "
+                             "both threads")
+    st2 = eng2.engine_stats()
+    before_swap = sum(1 for q in reqs[:32] if q.t_complete < swap_at)
+    lat2 = eng2.latency_stats()
+    log("serve9-wall", requests=len(reqs), failed=failed,
+        mismatched=mismatched, swaps=eng2.swaps,
+        workers_after=len(eng2.fleet.workers), swap_s=f"{t_swap:.2f}",
+        wall_s=f"{wall:.2f}", serve_rounds=st2["rounds"],
+        resize_dispatches=dispatch.STATS.dispatches - st2["rounds"],
+        launches=wall_launches, p50_s=f"{lat2['p50']:.4f}",
+        p99_s=f"{lat2['p99']:.4f}", first_batch_served_before_swap=
+        before_swap)
+    row.update(wall_s=wall, swap_s=t_swap, wall_p50=lat2["p50"],
+               wall_p99=lat2["p99"], wall_launches=wall_launches)
+    launches += wall_launches
+
+    # the CLI once, on a small fleet on the card
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as d, \
+            contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(["--n-windows", "2000", "--queries", "16",
+                             "--qps", "64", "--snapshot-dir", d])
+    out = json.loads(buf.getvalue())
+    if rc != 0 or out["device"] != "cuda" or out["swaps"] != 1:
+        raise AssertionError(f"serve CLI: rc={rc} {out}")
+    log("serve9-cli", windows=out["windows"], requests=out["requests"],
+        merged_rounds=out["merged_rounds"], swaps=out["swaps"],
+        p50_ms=out["latency_p50_ms"], p99_ms=out["latency_p99_ms"],
+        s=f"{time.perf_counter() - t0:.2f}")
+    log("serve9-done", launches=launches,
+        s=f"{time.perf_counter() - t_phase:.2f}")
+    row["launches"] = launches
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 20,000 windows build in 160-210 s on the H100 host; step 4 at lam=40
@@ -931,6 +1429,9 @@ def main(argv=None) -> int:
     # index build over them is host-bound (about n^1.8 evaluations)
     ap.add_argument("--embed-docs", type=int, default=640,
                     help="documents of the smollm-360m embedding run")
+    # cell A's window count, over 4 logical workers on the one card
+    ap.add_argument("--windows-fleet", type=int, default=20000,
+                    help="windows of the phase-8 fleet (and phase 9's)")
     args = ap.parse_args(argv)
 
     import torch
@@ -961,6 +1462,12 @@ def main(argv=None) -> int:
     phase_main_parity(torch, wf, rng, dev)
     full = phase_full(torch, wf, dispatch, args, dev)
     emb = phase_embedding(torch, pl2, args, dev)
+    t_fleet = time.perf_counter()
+    fleet_launches = phase_fleet_parity(torch, wf, dispatch, dev)
+    fleet8 = phase_fleet_full(torch, wf, dispatch, args, dev)
+    serve = phase_serve(torch, wf, dispatch, dev, fleet8)
+    log("fleet-serve-phases", s=f"{time.perf_counter() - t_fleet:.2f}",
+        parity_launches=fleet_launches)
     timing = phase_timing(torch, wf, build, rng, dev, full["sizes"])
     l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
@@ -969,7 +1476,12 @@ def main(argv=None) -> int:
         "name": "wavefront", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wavefront.cu",
         "replaces": "src/repro/kernels/wavefront.py:229",
-        "launches": full["launches"], "max_abs_err": max_err,
+        "launches": full["launches"] + fleet8["row"]["launches"]
+        + serve["launches"],
+        "launches_by_path": {"matching": full["launches"],
+                             "fleet": fleet8["row"]["launches"],
+                             "serve": serve["launches"]},
+        "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "old_bound_ms": main_row["old_bound_ms"], "library_ms": None}, {

@@ -297,7 +297,7 @@ class FleetBatchEngine:
     round boundary, :meth:`step` advances every in-flight plan by ONE
     merged round, and finished batches retire their rows immediately —
     this is the substrate of the continuous-batching serve layer
-    (the serve layer, not yet ported), where requests from different callers
+    (``repro_torch/serve/engine.py``), where requests from different callers
     arrive asynchronously and still share packed dispatches.
     :meth:`run` (admit once, step until drained) preserves the historical
     one-shot contract bit for bit: with a single admitted batch the merged

@@ -45,6 +45,8 @@ from repro_torch import device as device_mod
 from repro_torch.distances import base as dist_base
 from repro_torch.distances import bounds
 from repro_torch.distances import np_backend
+from repro_torch.kernels import dispatch as kernel_dispatch
+from repro_torch.kernels import registry as kernel_registry
 
 BACKENDS = ("numpy", "torch", "kernel")
 
@@ -67,8 +69,6 @@ def _resolve_backend(dist: dist_base.Distance, backend: str,
     if backend == "torch":
         return _registry_batch(dist, device)
     if backend == "kernel":
-        from repro_torch.kernels import dispatch as kernel_dispatch
-        from repro_torch.kernels import registry as kernel_registry
         if not kernel_registry.has(dist.name):
             # third-party distance: no kernel — its registry batch runs on
             # the counter's device, where the window table already lives
@@ -283,15 +283,14 @@ class CountedDistance:
 
         Rows with ``eps = +inf`` (value-consuming EXACT frontiers) opt out
         of every bound and always reach the exact dispatch; all counters see
-        requested rows only.  The bounds run on the host over the numpy
-        window table; the exact survivors are gathered where the backend
-        evaluates.
+        requested rows only.  The endpoint bounds run on the host over the
+        numpy window table.  Under the ``kernel`` backend the envelope
+        bound runs on the device (``kernels/dispatch.packed_envelope``)
+        over candidate windows gathered from the window table there, and
+        only the bounds come back for the bookkeeping; the other backends
+        compute it on the host from the cached envelope statistics.  The
+        exact survivors are gathered where the backend evaluates.
         """
-        if tier == "envelope" and self.backend == "kernel":
-            raise NotImplementedError(
-                "lb_cascade='envelope' under the kernel backend runs the "
-                "device envelope kernel, which is not ported yet "
-                "(ROADMAP.md Queue 1: device LB-envelope tier)")
         B = idxs.size
         ys = self.data[idxs]
         eps_v = np.broadcast_to(
@@ -318,9 +317,16 @@ class CountedDistance:
         if tier == "envelope" and alive.any() and \
                 self.dist.envelope_bound is not None:
             r = np.flatnonzero(alive)
-            y_env = self.envelopes().take(idxs[r])
-            lb1 = np.asarray(self.dist.envelope_bound(
-                xs[r], ys[r], lx[r], ly[r], y_env=y_env), np.float32)
+            if self.backend == "kernel" and \
+                    kernel_registry.has_envelope(self.dist.name):
+                out = kernel_dispatch.packed_envelope(
+                    self.dist.name, xs[r], self._windows(idxs[r]), lx[r],
+                    ly[r], eps=eps_v[r], device=self.device)
+                lb1 = np.asarray(out.dist, np.float32)
+            else:  # host bound from the cached candidate boxes
+                y_env = self.envelopes().take(idxs[r])
+                lb1 = np.asarray(self.dist.envelope_bound(
+                    xs[r], ys[r], lx[r], ly[r], y_env=y_env), np.float32)
             pruned1 = lb1 > eps_v[r]
             lbs[r] = np.maximum(lbs[r], lb1)
             alive[r[pruned1]] = False

@@ -162,15 +162,24 @@ class SubsequenceMatcher:
                                                lb_cascade=self.lb_cascade)
         # step 5 verifies on the host numpy wavefront, as in the reference
         self._verify_batch = np_backend.batch_for(self.dist.name)
+        self._flat = None
+        self._flat_level = None
         return self
 
     def flat_net(self, pivot_level: Optional[int] = None):
-        """Device-side view of the built net — needs ``core/distributed``,
-        which is not ported yet."""
-        raise NotImplementedError(
-            "flat_net() needs core/distributed (FlatNet, flatten_net), "
-            "which is not ported yet (ROADMAP.md Queue 1: flattened-net "
-            "device query)")
+        """Device-side view of the freshly built net (cached).
+
+        Hands the bulk-built reference net straight to
+        ``core.distributed.device_range_query``: ``flatten_net`` reuses the
+        net's stored link distances and one stacked dispatch for the rest,
+        so no second pair-at-a-time host pass happens here."""
+        if self.index_kind != "refnet":
+            raise ValueError("only the reference net flattens to a FlatNet")
+        if self._flat is None or self._flat_level != pivot_level:
+            from repro_torch.core.distributed import flatten_net
+            self._flat = flatten_net(self.index, pivot_level)
+            self._flat_level = pivot_level
+        return self._flat
 
     @property
     def eval_count(self) -> int:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DEFAULT = "cuda"
@@ -42,7 +43,10 @@ def of(t, device: DeviceLike = None) -> torch.device:
 def as_tensor(a, device: torch.device,
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """numpy array or tensor -> tensor on ``device`` (no copy when it is
-    already there with that dtype)."""
+    already there with that dtype; numpy views with negative or broadcast
+    strides are copied first)."""
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype or a.dtype)
+    if isinstance(a, np.ndarray):
+        a = np.ascontiguousarray(a)
     return torch.as_tensor(a, dtype=dtype).to(device)

@@ -22,13 +22,21 @@ lengths come from the host.  Eval accounting stays with
 rows only.
 
 :data:`STATS` tracks what per-bucket dispatch would have cost
-(``bucket_rounds``) against what packing actually paid (``dispatches``).
+(``bucket_rounds``) against what packing actually paid (``dispatches``),
+the per-shard rows of cross-shard (fleet) rounds, and the LB-cascade
+tiers.  A serving thread and a resharding thread may dispatch at once, so
+every update takes the stats' lock.
+
+:func:`packed_envelope` is the envelope tier's one call per round: the
+``lb:<name>`` bound over the round's candidate rows, on the device where
+the candidate windows already live.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +52,9 @@ class PackedMeta:
     buckets: Tuple[Tuple[int, int, int], ...]
     #: row offset of each bucket in the sorted layout
     offsets: Tuple[int, ...]
+    #: ``(shard, rows)`` per fleet shard a cross-shard round drew rows from
+    #: (empty when the dispatch carried no shard provenance)
+    shard_rows: Tuple[Tuple[int, int], ...] = ()
 
     @property
     def n_buckets(self) -> int:
@@ -57,14 +68,42 @@ class DispatchStats:
     bucket_rounds: int = 0  # calls a per-bucket dispatcher would have issued
     rows: int = 0           # requested rows (excl. any padding)
     pruned: int = 0         # rows certified > eps before their last diagonal
+    #: rows per fleet shard across cross-shard (round-based fleet) dispatches
+    shard_rows: Dict[int, int] = dataclasses.field(default_factory=dict)
+    #: LB-cascade accounting per tier (``envelope`` here): rows a tier's
+    #: bound was evaluated on, and rows it certified ``> eps``
+    lb_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
+    lb_pruned: Dict[str, int] = dataclasses.field(default_factory=dict)
     last_meta: Optional[PackedMeta] = None
+    lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
 
     def reset(self) -> None:
-        self.dispatches = 0
-        self.bucket_rounds = 0
-        self.rows = 0
-        self.pruned = 0
-        self.last_meta = None
+        with self.lock:
+            self.dispatches = 0
+            self.bucket_rounds = 0
+            self.rows = 0
+            self.pruned = 0
+            self.shard_rows = {}
+            self.lb_rows = {}
+            self.lb_pruned = {}
+            self.last_meta = None
+
+    def note_lb(self, tier: str, rows: int, pruned: int) -> None:
+        with self.lock:
+            self.lb_rows[tier] = self.lb_rows.get(tier, 0) + int(rows)
+            self.lb_pruned[tier] = self.lb_pruned.get(tier, 0) + int(pruned)
+
+    def note_dispatch(self, meta: PackedMeta, rows: int, pruned: int
+                      ) -> None:
+        with self.lock:
+            self.dispatches += 1
+            self.bucket_rounds += meta.n_buckets
+            self.rows += int(rows)
+            self.pruned += int(pruned)
+            for s, c in meta.shard_rows:
+                self.shard_rows[s] = self.shard_rows.get(s, 0) + c
+            self.last_meta = meta
 
 
 STATS = DispatchStats()
@@ -102,16 +141,19 @@ def pack_meta(lx: np.ndarray, ly: np.ndarray
 
 
 def packed_batch(name: str, xs, ys, lx=None, ly=None, *, eps=None,
-                 device=None) -> registry.KernelOut:
+                 device=None, shards=None) -> registry.KernelOut:
     """ONE padded device call over every length bucket of a round.
 
     ``xs``/``ys`` are row-paired batches (numpy arrays or tensors) whose
     rows may come from different ``(len_x, len_y)`` buckets (``lx``/``ly``
     carry the actual lengths); ``eps`` (scalar or per-row; +inf rows opt
     out) enables fused ε-pruning.  Runs on ``device`` (default: the device
-    of ``ys`` if it is a tensor, else the card).  Results come back in the
-    caller's row order as numpy arrays.  (The reference's per-row fleet
-    ``shards`` provenance comes with the fleet slice.)
+    of ``ys`` if it is a tensor, else the card).  ``shards`` optionally
+    carries per-row provenance (the fleet worker slot each row's candidate
+    window lives on) when a round-based fleet query merges frontiers
+    across shards — recorded in :data:`STATS` and :class:`PackedMeta` so a
+    fleet round shows as one dispatch, not one per shard.  Results come
+    back in the caller's row order as numpy arrays.
     """
     spec = registry.get(name)
     dev = device_mod.of(ys, device)
@@ -141,9 +183,43 @@ def packed_batch(name: str, xs, ys, lx=None, ly=None, *, eps=None,
                                 out.hit[inv_t].cpu().numpy(),
                                 out.pruned[inv_t].cpu().numpy())
 
-    STATS.dispatches += 1
-    STATS.bucket_rounds += meta.n_buckets
-    STATS.rows += B
-    STATS.pruned += int(result.pruned.sum())
-    STATS.last_meta = meta
+    if shards is not None:
+        sid, cnt = np.unique(np.asarray(shards, np.int64),
+                             return_counts=True)
+        meta = dataclasses.replace(
+            meta, shard_rows=tuple((int(s), int(c))
+                                   for s, c in zip(sid, cnt)))
+    STATS.note_dispatch(meta, B, int(result.pruned.sum()))
     return result
+
+
+def packed_envelope(name: str, xs, ys, lx=None, ly=None, *, eps,
+                    device=None) -> registry.KernelOut:
+    """ONE elementwise envelope-bound call over a round's candidate rows.
+
+    The ``lb:<name>`` spec is O(B*L) elementwise work (no wavefront), so
+    rows need no bucket sort — per-row lengths mask the ragged tails
+    directly.  ``ys`` may be a tensor already on the device (the counter
+    gathers candidate windows from its window table there); the bound is
+    computed on ``device`` (default: the device of ``ys`` if it is a
+    tensor, else the card) and only the ``(B,)`` bounds come back.
+    Returns numpy arrays: the bound in ``.dist`` (never BIG-masked), with
+    ``.pruned`` marking rows whose bound certifies ``dist > eps``.  Tier
+    accounting lands in :data:`STATS` (``lb_rows['envelope']`` /
+    ``lb_pruned['envelope']``).
+    """
+    spec = registry.get_envelope(name)
+    B = len(xs)
+    if B == 0:
+        z = np.zeros((0,), np.float32)
+        return registry.KernelOut(z, z.astype(bool), z.astype(bool))
+    lx = np.full(B, xs.shape[1], np.int64) if lx is None \
+        else np.asarray(lx, np.int64)
+    ly = np.full(B, ys.shape[1], np.int64) if ly is None \
+        else np.asarray(ly, np.int64)
+    eps_v = np.broadcast_to(np.asarray(eps, np.float32), (B,)).copy()
+    out = spec.batch(xs, ys, lx, ly, eps=eps_v, device=device)
+    lb = out.dist.cpu().numpy()   # the one transfer: verdicts follow
+    hit = lb <= eps_v
+    STATS.note_lb("envelope", B, int((~hit).sum()))
+    return registry.KernelOut(lb, hit, ~hit)

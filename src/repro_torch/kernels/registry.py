@@ -4,7 +4,10 @@
   registry: ``dtw`` / ``erp`` / ``frechet`` / ``levenshtein`` are the
   wavefront modes (the hand-written CUDA kernel of ``kernels/wavefront.py``
   on the card, its plain torch version on the CPU), ``euclidean`` /
-  ``hamming`` are elementwise torch;
+  ``hamming`` are elementwise torch, and one ``lb:<name>`` envelope spec
+  per alignment distance with an envelope bound (``dtw`` / ``erp`` /
+  ``frechet``) is the LB-cascade tier-1 bound: O(B*L) elementwise torch
+  ops on the operands' device (the reference's is jnp, not Pallas);
 * fused ε-pruning (Twin Subsequence Search, arXiv:2104.06874): pass
   ``eps`` and the kernel returns the hit mask and early-prune certificate
   alongside ``BIG``-masked distances, so range queries never materialize
@@ -14,12 +17,12 @@ The reference's TPU-only machinery has no counterpart here: PyTorch runs
 eagerly and the CUDA kernel takes the dispatch's widths as runtime
 arguments, so there is no per-shape jit cache, no power-of-two batch
 padding to bound recompiles, and no interpret / exec / band-tile policy.
-The ``lb:`` envelope specs come with the device LB-envelope slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -33,8 +36,14 @@ MODE_OF_NAME = {"dtw": "dtw", "erp": "erp", "frechet": "dfd",
                 "levenshtein": "lev"}
 NAME_OF_MODE = {v: k for k, v in MODE_OF_NAME.items()}
 
-#: call accounting — ``calls`` increments once per host dispatch
+#: call accounting — ``calls`` increments once per host dispatch (under
+#: :data:`_STATS_LOCK`: a serving thread and a resharding thread dispatch
+#: at once)
 STATS = {"calls": 0}
+_STATS_LOCK = threading.Lock()
+
+#: the envelope specs' box sentinel (the reference's ``3.4e38``)
+ENV_BIG = 3.4e38
 
 
 class KernelOut(NamedTuple):
@@ -57,12 +66,26 @@ def _lengths(lens, B: int, width: int) -> np.ndarray:
     return np.asarray(lens, np.int64)
 
 
+def _lens_tensor(lx, ly, B: int, Lx: int, Ly: int,
+                 dev: torch.device) -> torch.Tensor:
+    """``(B, 2)`` int32 ``(len_x, len_y)`` on ``dev``: one host-to-device
+    copy when both are host arrays, stacked on the device otherwise."""
+    if isinstance(lx, torch.Tensor) or isinstance(ly, torch.Tensor):
+        cols = [torch.full((B,), W, dtype=torch.int32, device=dev)
+                if v is None else device_mod.as_tensor(v, dev, torch.int32)
+                for v, W in ((lx, Lx), (ly, Ly))]
+        return torch.stack(cols, dim=1).contiguous()
+    return torch.as_tensor(np.stack([_lengths(lx, B, Lx),
+                                     _lengths(ly, B, Ly)], axis=1)
+                           .astype(np.int32)).to(dev)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
     """Device evaluation of one registered distance."""
 
-    name: str                 # distance-registry key
-    kind: str                 # "wavefront" | "elementwise"
+    name: str                 # distance-registry key (``lb:<name>``)
+    kind: str                 # "wavefront" | "elementwise" | "envelope"
     mode: Optional[str] = None  # wavefront DP mode (dtw/erp/dfd/lev)
 
     def batch(self, xs, ys, lx=None, ly=None, eps=None, *,
@@ -81,14 +104,28 @@ class KernelSpec:
         dev = device_mod.of(ys, device)
         B = len(xs)
         if B == 0:
-            z = torch.zeros((0,), device=dev)
-            return KernelOut(z, z.bool(), z.bool())
+            return self.device_call(xs, ys, device=dev)
         lx_h = _lengths(lx, B, xs.shape[1])
         ly_h = _lengths(ly, B, ys.shape[1])
         if lx is not None:
             xs = xs[:, :max(int(lx_h.max()), 1)]
         if ly is not None:
             ys = ys[:, :max(int(ly_h.max()), 1)]
+        with _STATS_LOCK:
+            STATS["calls"] += 1
+        return self.device_call(xs, ys, lx_h, ly_h, eps, device=dev)
+
+    def device_call(self, xs, ys, lx=None, ly=None, eps=None, *,
+                    device=None) -> KernelOut:
+        """The evaluation itself, at the operands' widths as given (no
+        trimming — the reference's ``device_call``, which its one-shot
+        fleet query composes; ``lx``/``ly`` numpy arrays or tensors, None
+        for the full widths)."""
+        dev = device_mod.of(ys, device)
+        B = len(xs)
+        if B == 0:
+            z = torch.zeros((0,), device=dev)
+            return KernelOut(z, z.bool(), z.bool())
         xs = device_mod.as_tensor(xs, dev)
         ys = device_mod.as_tensor(ys, dev)
         if eps is None:
@@ -97,12 +134,11 @@ class KernelSpec:
             eps_t = torch.broadcast_to(
                 device_mod.as_tensor(eps, dev, torch.float32),
                 (B,)).contiguous()
-        STATS["calls"] += 1
+        lens = _lens_tensor(lx, ly, B, xs.shape[1], ys.shape[1], dev)
         if self.kind == "elementwise":
-            return self._elementwise(xs, ys, torch.as_tensor(lx_h).to(dev),
-                                     eps_t)
-        lens = torch.as_tensor(np.stack([lx_h, ly_h], axis=1)
-                               .astype(np.int32)).to(dev)  # one copy
+            return self._elementwise(xs, ys, lens[:, 0], eps_t)
+        if self.kind == "envelope":
+            return self._envelope(xs, ys, lens[:, 0], lens[:, 1], eps_t)
         return self._wavefront(xs, ys, lens, eps_t)
 
     def _elementwise(self, xs, ys, lx, eps_v) -> KernelOut:
@@ -119,6 +155,69 @@ class KernelSpec:
         hit = d <= eps_v
         return KernelOut(torch.where(hit, d, BIG), hit,
                          torch.zeros_like(hit))
+
+    def _envelope(self, xs, ys, lx, ly, eps_v) -> KernelOut:
+        """LB-cascade tier-1 envelope bound (O(B*L) elementwise).
+
+        The device mirror of ``distances/bounds.py``'s two-sided envelope
+        bounds (soundness proofs live there): per-row axis-aligned boxes
+        over the valid positions, per-position box distances, and the
+        mode-specific combine — sum (dtw), max (dfd), or the ERP element
+        consumption + prefix gap-mass refinement.  ``dist`` carries the
+        bound itself (never BIG-masked — pruned rows return their bound so
+        callers keep the ``<= eps`` verdict); ``pruned`` certifies
+        ``lb > eps``, i.e. the exact wavefront DP can be skipped."""
+        xs = xs.to(torch.float32)
+        ys = ys.to(torch.float32)
+        if xs.ndim == 2:
+            xs, ys = xs[..., None], ys[..., None]
+        B, Lx, _ = xs.shape
+        Ly = ys.shape[1]
+        dev = xs.device
+        lx = lx.to(torch.int64)
+        ly = ly.to(torch.int64)
+        mx = torch.arange(Lx, device=dev)[None, :] < lx[:, None]
+        my = torch.arange(Ly, device=dev)[None, :] < ly[:, None]
+        lo_y = torch.where(my[..., None], ys, ENV_BIG).amin(dim=1)
+        hi_y = torch.where(my[..., None], ys, -ENV_BIG).amax(dim=1)
+        lo_x = torch.where(mx[..., None], xs, ENV_BIG).amin(dim=1)
+        hi_x = torch.where(mx[..., None], xs, -ENV_BIG).amax(dim=1)
+
+        def box_gap(a, lo, hi):
+            g = torch.clamp_min(lo[:, None, :] - a, 0.0) \
+                + torch.clamp_min(a - hi[:, None, :], 0.0)
+            return torch.sqrt(torch.clamp_min((g * g).sum(dim=-1), 0.0))
+
+        bdx = box_gap(xs, lo_y, hi_y)          # (B, Lx)
+        bdy = box_gap(ys, lo_x, hi_x)          # (B, Ly)
+        if self.mode == "dfd":
+            lb = torch.maximum(torch.where(mx, bdx, 0.0).amax(dim=1),
+                               torch.where(my, bdy, 0.0).amax(dim=1))
+        elif self.mode == "dtw":
+            lb = torch.maximum((bdx * mx).sum(dim=1), (bdy * my).sum(dim=1))
+        else:  # erp
+            gx = torch.where(mx, torch.sqrt(torch.clamp_min(
+                (xs * xs).sum(dim=-1), 0.0)), 0.0)
+            gy = torch.where(my, torch.sqrt(torch.clamp_min(
+                (ys * ys).sum(dim=-1), 0.0)), 0.0)
+            cons = torch.maximum(
+                (torch.minimum(gx, bdx) * mx).sum(dim=1),
+                (torch.minimum(gy, bdy) * my).sum(dim=1))
+            z = torch.zeros((B, 1), device=dev)
+            Gx = torch.cat([z, torch.cumsum(gx, dim=1)], dim=1)
+            Gy = torch.cat([z, torch.cumsum(gy, dim=1)], dim=1)
+            Tx = Gx.gather(1, lx[:, None])[:, 0]
+            Ty = Gy.gather(1, ly[:, None])[:, 0]
+            a = Gx.gather(1, (lx // 2)[:, None])[:, 0]
+            b = Tx - a
+            f = (a[:, None] - Gy).abs() \
+                + (b[:, None] - (Ty[:, None] - Gy)).abs()
+            valid_m = torch.arange(Ly + 1,
+                                   device=dev)[None, :] <= ly[:, None]
+            lb = torch.maximum(cons, torch.where(
+                valid_m, f, float("inf")).amin(dim=1))
+        hit = lb <= eps_v
+        return KernelOut(lb, hit, ~hit)
 
     def _wavefront(self, xs, ys, lens, eps_v) -> KernelOut:
         """The operands go to :func:`~repro_torch.kernels.wavefront.wavefront`
@@ -139,10 +238,25 @@ for _name, _mode in MODE_OF_NAME.items():
     _KERNELS[_name] = KernelSpec(name=_name, kind="wavefront", mode=_mode)
 for _name in ("euclidean", "hamming"):
     _KERNELS[_name] = KernelSpec(name=_name, kind="elementwise")
+# LB-cascade tier-1 envelope specs: one per alignment distance with an
+# envelope bound (levenshtein's length bound is already exact at tier 0,
+# and token boxes are meaningless — no lb:levenshtein)
+for _name in ("dtw", "erp", "frechet"):
+    _KERNELS[f"lb:{_name}"] = KernelSpec(
+        name=f"lb:{_name}", kind="envelope", mode=MODE_OF_NAME[_name])
 
 
 def has(name: str) -> bool:
     return name in _KERNELS
+
+
+def has_envelope(name: str) -> bool:
+    """Whether distance ``name`` has a device tier-1 envelope spec."""
+    return f"lb:{name}" in _KERNELS
+
+
+def get_envelope(name: str) -> KernelSpec:
+    return get(f"lb:{name}")
 
 
 def get(name: str) -> KernelSpec:
@@ -158,3 +272,7 @@ def spec_for_mode(mode: str) -> KernelSpec:
         raise KeyError(f"unknown wavefront mode {mode!r}")
     return get(NAME_OF_MODE[mode])
 
+
+
+def names():
+    return sorted(_KERNELS)

@@ -40,6 +40,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -52,8 +53,11 @@ BIG = 3.4e37
 #: mode ids of ``csrc/wavefront.cu``
 MODE_IDS = {"dtw": 0, "erp": 1, "dfd": 2, "lev": 3}
 
-#: kernel launches by :func:`wavefront_cuda` (one per successful launch)
+#: kernel launches by :func:`wavefront_cuda` (one per successful launch;
+#: counted under :data:`_LAUNCH_LOCK`, since a serving thread and a
+#: resharding thread launch at once)
 LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -272,5 +276,6 @@ def wavefront_cuda(xs, ys, lens, eps, *, mode: str) -> Out:
         raise RuntimeError(
             f"wavefront kernel launch failed ({rc}: {msg}) for mode={mode} "
             f"B={B} Lx={Lx} Ly={Ly} d={d}")
-    LAUNCHES += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
     return dist, hit, pruned

@@ -2,7 +2,8 @@
 
 One declarative :class:`RetrievalConfig`, one :class:`Retriever` facade
 over the ported index kinds and execution engines (host / batched frontier
-engine), with pluggable registries for third-party distances and indexes.
+engine / elastic fleet, with the continuous-batching serve engine on top),
+with pluggable registries for third-party distances and indexes.
 See ``facade.py`` for the query-plan API.
 """
 

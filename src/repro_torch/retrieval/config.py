@@ -15,25 +15,44 @@ lam, lambda0   subsequence-matching scope (§3.2).  ``lam=None`` = plain
                the full 5-step matching pipeline
 index          index kind from the retrieval registry
                (``refnet|linear|embedding``)
-execution      ``host`` (sequential frontier drive, classic counts) or
-               ``batched`` (frontier engine, one dispatch per merged round)
+execution      ``host`` (sequential frontier drive, classic counts),
+               ``batched`` (frontier engine, one dispatch per merged
+               round) or ``fleet`` (the elastic sharded fleet of
+               ``launch/elastic.py``)
 backend        counter backend: ``numpy | torch | kernel`` (default
                ``kernel``: every dispatch through the packed ragged-bucket
                dispatcher with fused ε-pruning — the hand-written CUDA
                wavefront kernel on a CUDA device, its plain torch version on
-               the CPU); host and batched execution both evaluate on it
-device         where the ``torch`` / ``kernel`` backends evaluate:
-               ``"cuda"`` (default) or ``"cpu"``.  Building on ``"cuda"``
-               without a card raises; nothing falls back to the CPU
+               the CPU); host, batched and fleet execution all evaluate on it
+device         where the ``torch`` / ``kernel`` backends (and the fleet's
+               one-shot query) evaluate: ``"cuda"`` (default) or ``"cpu"``.
+               Building on ``"cuda"`` without a card raises; nothing falls
+               back to the CPU
 lb_cascade     tiered LB policy screening verdict frontiers before the
                exact DP: ``"off" | "endpoint" | "envelope"`` (legacy
-               booleans normalize to off/endpoint)
+               booleans normalize to off/endpoint).  ``envelope`` runs the
+               O(B*L) envelope bound on the endpoint survivors — on the
+               device under the ``kernel`` backend.  Fleet execution
+               accepts ``envelope`` only (gathered from precomputed FlatNet
+               envelopes)
+workers        fleet worker names (or an int count); fleet execution only
+fleet_mode     fleet serving mode: ``rounds`` (default — shared-frontier
+               round-based serving through the packed fused-ε dispatcher,
+               eval counts match the host loop) or ``oneshot`` (one stacked
+               device query over the flattened nets); fleet execution only
 eps_prime,     reference-net tuning knobs (radii / parent cap /
 num_max,       exact-vs-Lemma-4 bounds)
 tight_bounds
 bulk_build     build hierarchies through the cohort loader (default);
                ``False`` = sequential Alg.-1 inserts (legacy counts)
-max_cohort     cohort size cap for the bulk loader
+max_cohort     cohort size cap for the bulk loader / fleet shard builds
+serve_*        continuous-batching serve engine (``Retriever.serve()``):
+               ``serve_max_inflight`` caps concurrently in-flight
+               requests, ``serve_admission`` picks the admission policy
+               (``tick`` = newcomers merge into the next shared round,
+               ``greedy`` = one dedicated first round), and
+               ``serve_snapshot_dir`` hosts the zero-downtime
+               snapshot/restore checkpoints (default: a fresh temp dir)
 =============  =============================================================
 
 Knobs of the reference that configure only its Pallas TPU schedule are
@@ -41,12 +60,8 @@ dropped: ``interpret`` (interpret-mode Pallas off-TPU), ``kernel_exec``
 (banded Pallas kernel vs ``lax.scan`` twin) and ``kernel_tile`` (VMEM band
 depth); so is ``kernel_backend``, the reference's alias of ``backend``.
 On a CUDA device the kernel runs; its plain torch version is reached only
-for CPU tensors, or by calling it by name.  Fleet execution (``workers``,
-``fleet_mode``), the serve engine (``serve_*``) and the MV index
-(``mv_refs``) come with their slices; until then ``execution="fleet"``
-raises ``NotImplementedError``, as does ``lb_cascade="envelope"`` under
-the ``kernel`` backend (the device envelope kernel is a later slice; a
-host substitute would change the ``lb_pruned`` counts).
+for CPU tensors, or by calling it by name.  The MV index (``mv_refs``)
+comes with its slice.
 
 ``to_json`` / ``from_json`` round-trip the config.
 """
@@ -55,7 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -76,15 +91,26 @@ class RetrievalConfig:
     backend: str = "kernel"
     device: str = "cuda"
     lb_cascade: Union[bool, str] = False
+    workers: Optional[Tuple[str, ...]] = None
+    fleet_mode: str = "rounds"
     eps_prime: float = 1.0
     num_max: Optional[int] = None
     tight_bounds: bool = False
     bulk_build: bool = True
     max_cohort: int = 256
+    serve_max_inflight: int = 32
+    serve_admission: str = "tick"
+    serve_snapshot_dir: Optional[str] = None
 
     # -- validation (the whole point: fail at construction, not mid-query) --
 
     def __post_init__(self):
+        if isinstance(self.workers, int):
+            object.__setattr__(
+                self, "workers",
+                tuple(f"w{i}" for i in range(self.workers)))
+        elif self.workers is not None:
+            object.__setattr__(self, "workers", tuple(self.workers))
         # normalize the tiered LB policy once (legacy booleans included),
         # so every engine below sees a canonical tier string and the JSON
         # round-trip serializes the normalized form
@@ -98,21 +124,12 @@ class RetrievalConfig:
             raise ValueError(
                 f"execution must be one of {EXECUTIONS}; "
                 f"got {self.execution!r}")
-        if self.execution == "fleet":
-            raise NotImplementedError(
-                "execution='fleet' (the elastic sharded fleet) is not ported "
-                "yet (ROADMAP.md Queue 1: elastic fleet)")
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"backend must be one of {BACKENDS}; got {self.backend!r}")
         if torch.device(self.device).type not in ("cuda", "cpu"):
             raise ValueError(
                 f"device must be 'cuda' or 'cpu'; got {self.device!r}")
-        if self.lb_cascade == "envelope" and self.backend == "kernel":
-            raise NotImplementedError(
-                "lb_cascade='envelope' under the kernel backend needs the "
-                "device envelope kernel, which is not ported yet "
-                "(ROADMAP.md Queue 1: device LB-envelope tier)")
 
         if self.lam is not None:
             if self.lam < 2:
@@ -129,6 +146,52 @@ class RetrievalConfig:
                     "(set lam=None)")
         if spec.requires_metric:
             dist_base.require_metric(dist)       # indexed path, §5
+
+        if self.execution == "fleet":
+            if not self.workers:
+                raise ValueError(
+                    "fleet execution needs workers (a name tuple or count)")
+            if self.lam is not None:
+                raise ValueError(
+                    "fleet execution serves window-level range queries; "
+                    "the matching pipeline (lam) runs host/batched")
+            if self.index != "refnet":
+                raise ValueError(
+                    "fleet execution shards per-worker reference nets; "
+                    f"index must be 'refnet', got {self.index!r}")
+            if self.lb_cascade == "endpoint":
+                raise ValueError(
+                    "fleet execution supports lb_cascade='envelope' only "
+                    "(gathered from precomputed FlatNet envelopes); the "
+                    "endpoint tier belongs to the host/batched frontier "
+                    "engine")
+            from repro_torch.launch.elastic import FLEET_MODES
+            if self.fleet_mode not in FLEET_MODES:
+                raise ValueError(
+                    f"fleet_mode must be one of {FLEET_MODES}; "
+                    f"got {self.fleet_mode!r}")
+        else:
+            if self.workers is not None:
+                raise ValueError(
+                    f"workers only apply to fleet execution "
+                    f"(execution={self.execution!r})")
+            if self.fleet_mode != "rounds":
+                raise ValueError(
+                    f"fleet_mode only applies to fleet execution "
+                    f"(execution={self.execution!r})")
+
+        # serve knobs (Retriever.serve(); validated here regardless of
+        # execution so a bad serving config fails at construction, not when
+        # the engine is finally asked for)
+        from repro_torch.serve.engine import ADMISSION_POLICIES
+        if self.serve_max_inflight < 1:
+            raise ValueError(
+                f"serve_max_inflight must be >= 1; "
+                f"got {self.serve_max_inflight}")
+        if self.serve_admission not in ADMISSION_POLICIES:
+            raise ValueError(
+                f"serve_admission must be one of {ADMISSION_POLICIES}; "
+                f"got {self.serve_admission!r}")
 
     # -- resolution helpers --------------------------------------------------
 
@@ -161,6 +224,8 @@ class RetrievalConfig:
                     "register it (repro_torch.retrieval.register_distance) "
                     "before serializing this config")
         d["distance"] = dist.name
+        if self.workers is not None:
+            d["workers"] = list(self.workers)
         return d
 
     def to_json(self, **kw) -> str:

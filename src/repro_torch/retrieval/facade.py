@@ -11,7 +11,7 @@ execution engine.
     rs = r.query(Q).nearest()           # type III -> nearest MatchPair
     rs = r.batch(queries).range(2.0)    # per-query hit lists
 
-Two execution engines hide behind one fluent query-plan API, selected by
+Three execution engines hide behind one fluent query-plan API, selected by
 the config:
 
 * ``lam`` set, execution ``host|batched`` — the 5-step subsequence
@@ -19,11 +19,14 @@ the config:
   :class:`~repro_torch.core.matching.MatchPair`;
 * ``lam=None``, execution ``host|batched`` — window-level retrieval over
   the database rows through the registry's index kinds on the
-  frontier-plan substrate, hits are window ids.
-
-The reference's third engine, the elastic fleet (``execution="fleet"``,
-:meth:`Retriever.elastic`, :meth:`Retriever.serve`), is not ported yet and
-raises ``NotImplementedError``.
+  frontier-plan substrate, hits are window ids;
+* execution ``fleet`` — the elastic sharded serving layer
+  (``launch/elastic.py``): round-based shared-frontier serving by default
+  (``fleet_mode="rounds"``, one packed fused-ε dispatch per merged round),
+  the one-shot stacked device query via ``fleet_mode="oneshot"`` or
+  ``.via("fleet-oneshot")``.  Hits are global window ids;
+  :meth:`Retriever.elastic` exposes resize / dead-worker controls and
+  :meth:`Retriever.serve` the continuous-batching serve engine.
 
 Every call returns a uniform :class:`ResultSet`: hits plus the
 ``{query, build}`` exact-evaluation buckets and dispatch counts of the
@@ -36,7 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -53,11 +56,12 @@ class ResultSet:
     """Uniform query result: hits + evaluation accounting.
 
     ``hits`` is a list of :class:`~repro_torch.core.matching.MatchPair`
-    (matcher mode) or window ids (window mode); for ``batch()`` plans it is
-    a per-query list of such lists.  ``stats`` always carries the
+    (matcher mode) or window ids (window/fleet mode); for ``batch()`` plans
+    it is a per-query list of such lists.  ``stats`` always carries the
     ``{"query", "build"}`` exact-eval buckets and the dispatch counts;
-    batched window-level executions add ``rounds``.  ``distances`` is
-    filled by window-mode ``nearest()``.
+    batched window-level executions add ``rounds``, fleet adds
+    ``device_evals``.  ``distances`` is filled by window-mode
+    ``nearest()``.
     """
 
     hits: list
@@ -86,29 +90,38 @@ class QueryPlan:
     :class:`ResultSet`.  Modifiers return new plans:
 
     * :meth:`via` — override the execution policy for this call only
-      (``host`` vs ``batched``);
+      (``host`` vs ``batched``; on a fleet retriever ``host`` is the
+      per-shard parity loop, ``batched`` the config's fleet mode, and
+      ``fleet-rounds`` / ``fleet-oneshot`` pin the shared-frontier
+      round-based path or the one-shot stacked device query);
     * :meth:`lb` — override the config's LB-cascade tier for this call
       (``"off" | "endpoint" | "envelope"``, legacy booleans accepted; hit
       sets are unchanged by construction — only exact-eval counts drop);
-    * :meth:`dead` — fleet worker masking; not ported yet (raises).
+    * :meth:`dead` — mask fleet workers out of this call (fault-tolerance
+      path; results degrade to the union of the survivors).
     """
 
     def __init__(self, retriever: "Retriever", queries: List[np.ndarray],
                  is_batch: bool, execution: Optional[str] = None,
-                 lb_cascade: Optional[bool] = None):
+                 lb_cascade: Optional[bool] = None,
+                 dead_workers: tuple = ()):
         self._r = retriever
         self._queries = queries
         self._is_batch = is_batch
         self._execution = execution
         self._lb = lb_cascade
+        self._dead = dead_workers
 
     def _clone(self, **kw) -> "QueryPlan":
-        args = dict(execution=self._execution, lb_cascade=self._lb)
+        args = dict(execution=self._execution, lb_cascade=self._lb,
+                    dead_workers=self._dead)
         args.update(kw)
         return QueryPlan(self._r, self._queries, self._is_batch, **args)
 
     def via(self, execution: str) -> "QueryPlan":
         allowed = ("host", "batched")
+        if self._r.is_fleet:
+            allowed += ("fleet-rounds", "fleet-oneshot")
         if execution not in allowed:
             raise ValueError(
                 f"via() accepts {allowed} on this retriever; "
@@ -118,17 +131,16 @@ class QueryPlan:
     def lb(self, tier=True) -> "QueryPlan":
         from repro_torch.distances import bounds as dist_bounds
         tier = dist_bounds.normalize_tier(tier)
-        if tier == "envelope" and self._r.config.backend == "kernel":
-            raise NotImplementedError(
-                "lb('envelope') under the kernel backend needs the device "
-                "envelope kernel, which is not ported yet (ROADMAP.md "
-                "Queue 1: device LB-envelope tier)")
+        if self._r.is_fleet and tier == "endpoint":
+            raise ValueError(
+                "the fleet path supports lb('envelope') (or 'off') only; "
+                "the endpoint tier belongs to the host/batched engine")
         return self._clone(lb_cascade=tier)
 
     def dead(self, *workers: str) -> "QueryPlan":
-        raise NotImplementedError(
-            "dead() masks fleet workers; the elastic fleet is not ported "
-            "yet (ROADMAP.md Queue 1: elastic fleet)")
+        if not self._r.is_fleet:
+            raise ValueError("dead() only applies to fleet execution")
+        return self._clone(dead_workers=self._dead + workers)
 
     # -- terminals -----------------------------------------------------------
 
@@ -141,6 +153,48 @@ class QueryPlan:
 
     def longest(self, eps: float) -> ResultSet:
         return self._r._longest(self, float(eps))
+
+
+class ElasticHandle:
+    """Fleet controls, reachable only when execution is ``fleet``."""
+
+    def __init__(self, engine: "_FleetEngine"):
+        self._e = engine
+
+    @property
+    def index(self):
+        """The underlying :class:`~repro_torch.launch.elastic.ElasticIndex`."""
+        return self._e.fleet
+
+    @property
+    def workers(self) -> List[str]:
+        return list(self._e.fleet.workers)
+
+    @property
+    def dead(self) -> List[str]:
+        return sorted(self._e.dead)
+
+    @property
+    def device_stats(self) -> Dict[str, int]:
+        return dict(self._e.fleet.device_stats)
+
+    def resize(self, workers: Sequence[str]) -> float:
+        """Reshard incrementally onto a new worker set; returns the moved
+        fraction.  The dead mask is cleared: survivors come out of the
+        reshard with healthy shards, and masked workers dropped from the
+        set no longer exist to mask."""
+        frac = self._e.fleet.resize(list(workers))
+        self._e.dead.clear()
+        return frac
+
+    def mark_dead(self, *workers: str) -> "ElasticHandle":
+        """Mask workers out of subsequent queries (until revived/resized)."""
+        self._e.dead |= set(workers)
+        return self
+
+    def revive(self, *workers: str) -> "ElasticHandle":
+        self._e.dead -= set(workers)
+        return self
 
 
 # -- engines ------------------------------------------------------------------
@@ -261,6 +315,42 @@ class _WindowEngine:
         return bool(self.range_many([q], eps, execution, lb)[0])
 
 
+class _FleetEngine:
+    """execution='fleet': the elastic sharded serving layer."""
+
+    def __init__(self, cfg: RetrievalConfig, data):
+        from repro_torch.launch.elastic import ElasticIndex
+        self.cfg = cfg
+        self.fleet = ElasticIndex(
+            cfg.dist, data, list(cfg.workers), eps_prime=cfg.eps_prime,
+            tight_bounds=cfg.tight_bounds, backend=cfg.backend,
+            max_cohort=cfg.max_cohort, fleet_mode=cfg.fleet_mode,
+            lb_cascade=cfg.lb_cascade, device=cfg.device)
+        self.dead: set = set()
+
+    def range_many(self, queries, eps, execution, extra_dead=(),
+                   lb=None) -> List[List[int]]:
+        dead = tuple(sorted(self.dead | set(extra_dead)))
+        prev = self.fleet.lb_cascade
+        if lb is not None:   # per-call tier override (envelope/off only;
+            self.fleet.lb_cascade = lb   # QueryPlan.lb validates)
+        try:
+            if execution == "host":
+                # via("host") contract: the sequential per-query loop IS
+                # the requested execution mode
+                return [self.fleet.range_query(q, eps, dead=dead,
+                                               batched=False)
+                        for q in queries]
+            # "batched" follows the config's fleet_mode; the via()
+            # modifiers pin a specific serving path for this call only
+            mode = {"fleet-rounds": "rounds",
+                    "fleet-oneshot": "oneshot"}.get(execution)
+            return self.fleet.range_query_batch(queries, eps, dead=dead,
+                                                mode=mode)
+        finally:
+            self.fleet.lb_cascade = prev
+
+
 # -- the facade ---------------------------------------------------------------
 
 
@@ -273,7 +363,7 @@ class Retriever:
     def __init__(self, config: RetrievalConfig, engine, mode: str):
         self.config = config
         self._engine = engine
-        self._mode = mode   # "matcher" | "window"
+        self._mode = mode   # "matcher" | "window" | "fleet"
 
     # -- construction --------------------------------------------------------
 
@@ -292,6 +382,8 @@ class Retriever:
                 f"expected a RetrievalConfig; got {type(config).__name__}")
         device_mod.resolve(config.device)
         with _deprecation.facade_construction():
+            if config.execution == "fleet":
+                return cls(config, _FleetEngine(config, data), "fleet")
             if config.lam is not None:
                 return cls(config, _MatcherEngine(config, data), "matcher")
             return cls(config, _WindowEngine(config, data), "window")
@@ -304,23 +396,40 @@ class Retriever:
 
     def batch(self, queries) -> QueryPlan:
         """Plan a batch of queries (answered concurrently where the
-        execution policy allows: the frontier engine)."""
+        execution policy allows: frontier engine / stacked fleet query)."""
         return QueryPlan(self, [np.asarray(q) for q in queries],
                          is_batch=True)
 
-    def elastic(self):
-        """Fleet controls (resize / dead-worker masking) — not ported yet."""
-        raise NotImplementedError(
-            "elastic() needs the elastic fleet, which is not ported yet "
-            "(ROADMAP.md Queue 1: elastic fleet)")
+    def elastic(self) -> ElasticHandle:
+        """Fleet controls (resize / dead-worker masking); fleet-only."""
+        if self._mode != "fleet":
+            raise ValueError(
+                "elastic() requires execution='fleet' "
+                f"(this retriever runs {self.config.execution!r})")
+        return ElasticHandle(self._engine)
 
     def serve(self, eps: float = 1.0):
-        """The continuous-batching serve engine — not ported yet."""
-        raise NotImplementedError(
-            "serve() needs the serve engine, which is not ported yet "
-            "(ROADMAP.md Queue 1: serving)")
+        """A continuous-batching :class:`~repro_torch.serve.engine.ServeEngine`
+        over this retriever's fleet: asynchronous requests join the shared
+        frontier cadence mid-flight, one packed dispatch per merged round,
+        zero-downtime snapshot-swap ``resize()``.  Configured by the
+        ``serve_*`` config fields; fleet-only."""
+        if self._mode != "fleet":
+            raise ValueError(
+                "serve() requires execution='fleet' "
+                f"(this retriever runs {self.config.execution!r})")
+        from repro_torch.serve.engine import ServeConfig, ServeEngine
+        cfg = self.config
+        return ServeEngine(self._engine.fleet, ServeConfig(
+            eps=eps, max_inflight=cfg.serve_max_inflight,
+            admission=cfg.serve_admission,
+            snapshot_dir=cfg.serve_snapshot_dir))
 
     # -- introspection -------------------------------------------------------
+
+    @property
+    def is_fleet(self) -> bool:
+        return self._mode == "fleet"
 
     @property
     def matcher(self):
@@ -350,6 +459,11 @@ class Retriever:
 
     def eval_stats(self) -> Dict[str, int]:
         """Cumulative ``{query, build}`` exact-eval buckets + dispatches."""
+        if self._mode == "fleet":
+            out = self._engine.fleet.eval_count()
+            out["device_evals"] = self._engine.fleet.device_stats[
+                "total_evals"]
+            return out
         c = self._engine.counter
         return {"query": c.count, "build": c.build_count,
                 "dispatches": c.dispatches,
@@ -358,6 +472,10 @@ class Retriever:
     def reset_counter(self) -> None:
         """Zero the query-side counters (build buckets included, matching
         the legacy ``reset_counter`` semantics)."""
+        if self._mode == "fleet":
+            raise ValueError("fleet counters are monotone by design "
+                             "(retired-shard accounting); snapshot "
+                             "eval_stats() instead")
         self._engine.counter.reset()
         if self._mode == "window":
             self._engine.rounds = 0
@@ -371,10 +489,15 @@ class Retriever:
                 rounds: Optional[int] = None) -> ResultSet:
         after = self.eval_stats()
         stats = {"query": after["query"] - before["query"],
-                 "build": after["build"],
-                 "dispatches": after["dispatches"] - before["dispatches"],
-                 "lb": after["lb"] - before["lb"],
-                 "build_dispatches": after["build_dispatches"]}
+                 "build": after["build"]}
+        for k in ("dispatches", "lb"):
+            if k in after:
+                stats[k] = after[k] - before[k]
+        if "build_dispatches" in after:
+            stats["build_dispatches"] = after["build_dispatches"]
+        if "device_evals" in after:
+            stats["device_evals"] = (after["device_evals"]
+                                     - before["device_evals"])
         if rounds is not None:
             stats["rounds"] = rounds
         return ResultSet(hits=hits, stats=stats, distances=distances)
@@ -382,7 +505,7 @@ class Retriever:
     def _execution(self, plan: QueryPlan) -> str:
         if plan._execution is not None:
             return plan._execution
-        return self.config.execution
+        return "batched" if self._mode == "fleet" else self.config.execution
 
     def _range(self, plan: QueryPlan, eps: float) -> ResultSet:
         before = self._snap()
@@ -391,12 +514,16 @@ class Retriever:
         if self._mode == "matcher":
             with self._engine.overrides(execution, plan._lb):
                 per_q = [self._engine.range(Q, eps) for Q in plan._queries]
-        else:
+        elif self._mode == "window":
             r0 = self._engine.rounds
             per_q = self._engine.range_many(plan._queries, eps, execution,
                                             plan._lb)
             if execution == "batched":
                 rounds = self._engine.rounds - r0
+        else:
+            per_q = self._engine.range_many(plan._queries, eps, execution,
+                                            extra_dead=plan._dead,
+                                            lb=plan._lb)
         hits = per_q if plan._is_batch else per_q[0]
         return self._finish(hits, before, rounds=rounds)
 
@@ -411,6 +538,10 @@ class Retriever:
 
     def _nearest(self, plan: QueryPlan, eps_max: Optional[float],
                  tol: float) -> ResultSet:
+        if self._mode == "fleet":
+            raise ValueError(
+                "fleet execution serves range queries; nearest/longest run "
+                "under host/batched execution")
         before = self._snap()
         execution = self._execution(plan)
         bests, dists = [], []

@@ -147,3 +147,56 @@ def test_pairwise_l2_wrapper_rejects_what_the_kernel_does_not_take(
     before = pl2.LAUNCHES
     assert pl2.pairwise_l2_cuda(x[:0], x).shape == (0, 4)
     assert pl2.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dtw", "erp", "frechet"])
+def test_envelope_spec_on_the_card_matches_the_cpu(cuda_device, name):
+    """The ``lb:`` envelope specs are torch ops: the same bound on the card
+    as on the CPU within ``rtol = atol = 1e-5`` (reductions may associate
+    differently), the same verdicts."""
+    from repro_torch.kernels import registry
+    rng = np.random.default_rng(7)
+    xs = np.cumsum(rng.normal(size=(300, 17, 2)), 1).astype(np.float32)
+    ys = np.cumsum(rng.normal(size=(300, 12, 2)), 1).astype(np.float32)
+    lx, ly = rng.integers(1, 18, 300), rng.integers(1, 13, 300)
+    eps = rng.uniform(0, 8, 300).astype(np.float32)
+    spec = registry.get_envelope(name)
+    got = spec.batch(xs, ys, lx, ly, eps=eps, device=cuda_device)
+    want = spec.batch(xs, ys, lx, ly, eps=eps, device="cpu")
+    torch.testing.assert_close(got.dist.cpu(), want.dist, rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got.pruned.cpu(), want.pruned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,lb", [("levenshtein", "off"),
+                                     ("erp", "off"), ("erp", "envelope")])
+def test_device_range_query_on_the_card_matches_the_cpu(cuda_device, name,
+                                                        lb):
+    """The one-shot flattened-net query: hits and every stats key equal on
+    the card and on the CPU; one pivot launch plus one survivor launch."""
+    from repro_torch.core.counter import CountedDistance
+    from repro_torch.core.distributed import (device_range_query,
+                                              flatten_net)
+    from repro_torch.core.refnet import ReferenceNet
+    from repro_torch.data import synthetic
+    from repro_torch.distances import get
+    gen = synthetic.proteins if name == "levenshtein" \
+        else synthetic.trajectories
+    data = gen(400, seed=8)
+    net = ReferenceNet(get(name), data, tight_bounds=True,
+                       counter=CountedDistance(get(name), data,
+                                               device="cpu")).build_batched()
+    flat = flatten_net(net)
+    qs = data[::40].copy()
+    eps = 2.0 if name == "levenshtein" else 1.0
+    before = wf.LAUNCHES
+    got, gst = device_range_query(flat, qs, eps, lb_cascade=lb,
+                                  device=cuda_device)
+    launches = wf.LAUNCHES - before
+    want, wst = device_range_query(flat, qs, eps, lb_cascade=lb,
+                                   device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert gst == wst and got.any()
+    assert launches == 1 + (gst["member_evals"] > 0)

@@ -208,32 +208,38 @@ def test_config_round_trips_and_unported_features_raise():
                   "kernel_backend"):
         with pytest.raises(ValueError, match="unknown"):
             RetrievalConfig.from_dict({"distance": "erp", field: None})
-    with pytest.raises(NotImplementedError, match="elastic fleet"):
-        RetrievalConfig("erp", execution="fleet")
+    # fleet execution builds (it raised before the fleet was ported)
+    fleet = RetrievalConfig("erp", execution="fleet", workers=2,
+                            device="cpu")
+    assert fleet.workers == ("w0", "w1")
     for kind in ("covertree", "mv"):
         with pytest.raises(NotImplementedError, match="not ported"):
             RetrievalConfig("erp", index=kind)
-    with pytest.raises(NotImplementedError, match="envelope"):
-        RetrievalConfig("erp", lb_cascade="envelope")
     with pytest.raises(ValueError, match="backend"):
         RetrievalConfig("erp", backend="pallas")
     data = _trajectories(20, 6, seed=1)
+    assert Retriever.build(fleet, data).query(data[4]).range(0.0).hits \
+        == [4]
+    # the envelope tier under the kernel backend builds and answers, with
+    # the same hits as the host envelope tier and as no cascade
+    env = Retriever.build(RetrievalConfig("erp", device="cpu",
+                                          lb_cascade="envelope"), data)
     r = Retriever.build(RetrievalConfig("erp", device="cpu"), data)
-    with pytest.raises(NotImplementedError, match="elastic fleet"):
-        r.elastic()
-    with pytest.raises(NotImplementedError, match="serving"):
-        r.serve()
-    with pytest.raises(NotImplementedError, match="elastic fleet"):
-        r.query(data[0]).dead("w0")
-    with pytest.raises(NotImplementedError, match="envelope"):
-        r.query(data[0]).lb("envelope")
-    # the host envelope tier stays available off the kernel backend
     h = Retriever.build(RetrievalConfig("erp", device="cpu",
                                         backend="numpy",
                                         lb_cascade="envelope"), data)
-    assert h.query(data[0]).range(1.0).hits
+    want = h.query(data[0]).range(1.0).hits
+    assert want and env.query(data[0]).range(1.0).hits == want
+    assert r.query(data[0]).lb("envelope").range(1.0).hits == want
+    # fleet controls on a non-fleet retriever raise, as in the reference
+    with pytest.raises(ValueError, match="fleet"):
+        r.elastic()
+    with pytest.raises(ValueError, match="fleet"):
+        r.serve()
+    with pytest.raises(ValueError, match="fleet"):
+        r.query(data[0]).dead("w0")
+    from repro_torch.core.distributed import FlatNet
     m = Retriever.build(RetrievalConfig(
         "levenshtein", lam=8, device="cpu"),
         protein_sequences(2, 40, seed=2))
-    with pytest.raises(NotImplementedError, match="flattened-net"):
-        m.matcher.flat_net()
+    assert isinstance(m.matcher.flat_net(), FlatNet)
