@@ -28,6 +28,18 @@ version on the card.  Then it drives the port's two paths:
 * the continuous-batching serve engine on that fleet (phase 9): a seeded
   virtual-clock schedule against the sequential rounds oracle, wall-clock
   serving across a background snapshot-swap resize, and the serve CLI.
+* the paper's comparison indexes (phase 10): ``benchmarks/bench_query.py``'s
+  PROTEINS/Levenshtein and TRAJ/ERP sweeps over the reference net, its
+  tighter variants, the cover tree and MV reference indexing, at the
+  bench's check size held to ``BENCH_query.json`` row by row, and at its
+  full size held to the numpy backend (evaluated by worker processes
+  meanwhile), with each index's build seconds, space and evaluation
+  fraction; the cover tree also flattened and queried on the card;
+* the training half (phase 11): ``repro_torch.launch.train`` for
+  smollm-360m at its published widths in f32 with ``--dedup`` (the
+  retrieval stack as a data filter, through the wavefront kernel), the
+  same run stopped by an injected failure and resumed, and the example's
+  tail: the trained network's windows indexed and a near-duplicate probed.
 
 The wavefront kernel takes each dispatch's rows as they are (the run fails
 if the reference's padded layout is built on the card path), and the
@@ -1415,23 +1427,474 @@ def phase_serve(torch, wf, dispatch, dev, fleet8) -> dict:
     return row
 
 
+# -- phase 10: the paper's index comparison (Figs. 8 and 10) -----------------
+
+#: ``benchmarks/bench_query.py``'s sweeps that this phase runs: row-name
+#: prefix, distance, data generator, eps', range sizes
+INDEX_SWEEPS = (
+    ("fig8_proteins_lev", "levenshtein", "proteins", 1.0,
+     (1.0, 2.0, 4.0, 8.0)),
+    ("fig10_traj_erp", "erp", "trajectories", 2.0, (1.0, 2.0, 4.0)),
+)
+#: worker processes that evaluate the numpy-backend reference of the full
+#: sweep while the card runs it (the card's machine has 8 cores)
+INDEX_REF_WORKERS = 6
+
+
+def index_configs(dist, eps_prime, **kw) -> dict:
+    """The bench's six index variants (``bench_query._retrievers``)."""
+    from repro_torch.retrieval import RetrievalConfig
+    base = RetrievalConfig(dist, eps_prime=eps_prime, **kw)
+    return {
+        "rn": base,
+        "rn5": base.replace(num_max=5),
+        "rn_tight": base.replace(num_max=5, tight_bounds=True),
+        "ct": base.replace(index="covertree"),
+        "mv5": base.replace(index="mv", mv_refs=5),
+        "mv50": base.replace(index="mv", mv_refs=50),
+    }
+
+
+def index_data(gen, n, n_queries):
+    """A sweep's windows and its mutated queries (the bench's seeds)."""
+    from repro_torch.data import synthetic
+    data = getattr(synthetic, gen)(n, seed=0)
+    return data, mutate(data, n_queries, seed=2)
+
+
+def index_reference(sweep, label, n, n_queries) -> dict:
+    """One variant of a sweep on the numpy host backend, in a worker
+    process: build counts, then hits and counts of the batched engine per
+    range size."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.retrieval import Retriever
+    _, dist, gen, eps_prime, ranges = sweep
+    data, qs = index_data(gen, n, n_queries)
+    r = Retriever.build(index_configs(dist, eps_prime, backend="numpy",
+                                      device="cpu")[label], data)
+    out = {"build": r.eval_stats()["build"]}
+    for eps in ranges:
+        r.reset_counter()
+        rs = r.batch(qs).via("batched").range(eps)
+        out[eps] = (rs.hits, rs.stats["query"])
+    return out
+
+
+def index_query(torch, wf, dispatch, r, qs, eps, via, label):
+    """One facade batch range query with the counts zeroed just before; its
+    launches are held to its counted dispatches."""
+    r.reset_counter()
+    rs, s, launches, ks, _ = drive(torch, wf, dispatch, label,
+                                   lambda: r.batch(qs).via(via).range(eps))
+    if not launches == dispatch.STATS.dispatches == rs.stats["dispatches"]:
+        raise AssertionError(f"{label}: {launches} launches, "
+                             f"{rs.stats['dispatches']} counted dispatches")
+    return rs, s, launches, ks
+
+
+def phase_index_check(torch, wf, dispatch, dev) -> int:
+    """Phase 10a: the bench's check size (n = 1200, 8 queries, sequential
+    builds) on the card, every row held to ``BENCH_query.json``:
+    ``evals_frac``, ``hits_per_query`` and ``dispatches``, and the engine
+    rows' ``dispatches`` and ``rounds``.  Returns the launches."""
+    from repro_torch.retrieval import Retriever
+    bench = {row["name"]: row for row in
+             json.loads((ROOT / "BENCH_query.json").read_text())}
+    total = 0
+    for sweep in INDEX_SWEEPS:
+        prefix, dist, gen, eps_prime, ranges = sweep
+        data, qs = index_data(gen, 1200, 8)
+        N, nq = len(data), len(qs)
+        t0 = time.perf_counter()
+        rows = 0
+        built = {}
+        for label, cfg in index_configs(dist, eps_prime, bulk_build=False,
+                                        device=str(dev)).items():
+            r, s, launches, ks, _ = drive(
+                torch, wf, dispatch, f"index10-check-{label}",
+                lambda: Retriever.build(cfg, data))
+            if launches != r.eval_stats()["build_dispatches"]:
+                raise AssertionError(f"{prefix} {label} build: {launches} "
+                                     "launches != build dispatches")
+            total += launches
+            built[label] = r
+        for eps in ranges:
+            base = None
+            for label, r in built.items():
+                name = f"{prefix}_eps{eps}_{label}"
+                host, _, l1, _ = index_query(torch, wf, dispatch, r, qs, eps,
+                                             "host", name)
+                eng, _, l2, _ = index_query(torch, wf, dispatch, r, qs, eps,
+                                            "batched", name + "_engine")
+                total += l1 + l2
+                hits = sum(len(h) for h in host.hits)
+                base = hits if base is None else base
+                frac = round(host.stats["query"] / (nq * N), 4)
+                if hits != base or eng.hits != host.hits \
+                        or eng.stats["query"] != host.stats["query"]:
+                    raise AssertionError(f"{name}: hits or counts disagree "
+                                         "across variants or engines")
+                got = {name: dict(evals_frac=frac,
+                                  hits_per_query=round(hits / nq, 1),
+                                  dispatches=host.stats["dispatches"]),
+                       name + "_engine": dict(
+                           evals_frac=frac,
+                           dispatches=eng.stats["dispatches"],
+                           rounds=eng.stats["rounds"])}
+                for key, vals in got.items():
+                    want = {k: bench[key][k] for k in vals}
+                    if vals != want:
+                        raise AssertionError(f"{key}: {vals} != "
+                                             f"BENCH_query.json {want}")
+                    rows += 1
+        log("index10-check", sweep=prefix, windows=N, queries=nq,
+            variants=len(built), rows_held=rows,
+            s=f"{time.perf_counter() - t0:.2f}")
+    return total
+
+
+def phase_index_full(torch, wf, dispatch, args, dev, refs) -> int:
+    """Phase 10b: the bench's full size on the card (default bulk build):
+    each variant's build seconds (host / kernel), its space (``stats()``)
+    and per range size its evaluation fraction and seconds, by host and
+    batched execution; hits and ``{query, build}`` counts held to the numpy
+    host backend (``refs``: futures of :func:`index_reference`).  The cover
+    tree also flattens to a FlatNet whose device query must return the
+    host's hits.  Returns the launches."""
+    from repro_torch.retrieval import Retriever
+    n, nq = args.windows_index, args.queries_index
+    total = 0
+    for sweep in INDEX_SWEEPS:
+        prefix, dist, gen, eps_prime, ranges = sweep
+        data, qs = index_data(gen, n, nq)
+        N = len(data)
+        for label, cfg in index_configs(dist, eps_prime,
+                                        device=str(dev)).items():
+            r, s, launches, ks, _ = drive(
+                torch, wf, dispatch, f"index10-{label}",
+                lambda: Retriever.build(cfg, data))
+            st = r.eval_stats()
+            if launches != st["build_dispatches"]:
+                raise AssertionError(f"{prefix} {label} build: {launches} "
+                                     "launches != build dispatches")
+            total += launches
+            space = r.index.stats()
+            entries = space.get("n_list_entries", space.get("table_entries"))
+            log("index10-build", sweep=prefix, index=label, windows=N,
+                build_s=f"{s:.2f}", host_s=f"{s - ks:.2f}",
+                kernel_s=f"{ks:.4f}", build_evals=st["build"],
+                launches=launches, size_bytes=space["size_bytes"],
+                entries=entries)
+            ref = refs[(prefix, label)].result()
+            if ref["build"] != st["build"]:
+                raise AssertionError(f"{prefix} {label}: build evals "
+                                     f"{st['build']} != numpy {ref['build']}")
+            host_hits = {}
+            for eps in ranges:
+                name = f"{prefix}_eps{eps}_{label}"
+                host, hs, l1, hk = index_query(torch, wf, dispatch, r, qs,
+                                               eps, "host", name)
+                eng, es, l2, ek = index_query(torch, wf, dispatch, r, qs,
+                                              eps, "batched", name)
+                total += l1 + l2
+                want_hits, want_q = ref[eps]
+                if not host.hits == eng.hits == want_hits or \
+                        not host.stats["query"] == eng.stats["query"] \
+                        == want_q:
+                    raise AssertionError(f"{name}: hits or query evals "
+                                         "differ from the numpy backend")
+                log("index10-query", sweep=prefix, index=label, eps=eps,
+                    queries=nq, evals_frac=f"{want_q / (nq * N):.4f}",
+                    hits=sum(len(h) for h in host.hits),
+                    host_s=f"{hs:.3f}", host_kernel_s=f"{hk:.4f}",
+                    host_dispatches=host.stats["dispatches"],
+                    batched_s=f"{es:.3f}", batched_kernel_s=f"{ek:.4f}",
+                    rounds=eng.stats["rounds"])
+                host_hits[eps] = host.hits
+            if label == "ct":
+                total += index_ct_flat(torch, wf, dispatch, r, qs, host_hits,
+                                       prefix, dev)
+    return total
+
+
+def index_ct_flat(torch, wf, dispatch, r, qs, host_hits, prefix, dev):
+    """The cover tree flattened to a FlatNet (as ``flat_net()`` does) and
+    queried on the card in one stacked query per range size: its hits must
+    equal the host's.  Each query launches once for the query x pivot rows
+    and once more when a survivor is left.  Returns the launches."""
+    import numpy as np
+    from repro_torch.core.distributed import device_range_query, flatten_net
+    flat, _, total, _, _ = drive(torch, wf, dispatch, "index10-ct-flat",
+                                 lambda: flatten_net(r.index))
+    if total != dispatch.STATS.dispatches:
+        raise AssertionError(f"{prefix}: flattening launched {total} times "
+                             f"for {dispatch.STATS.dispatches} dispatches")
+    for eps, hits in host_hits.items():
+        (got, st), s, launches, _, _ = drive(
+            torch, wf, dispatch, "index10-ct-device",
+            lambda: device_range_query(flat, qs, eps, device=dev))
+        want = np.zeros(got.shape, bool)
+        for i, h in enumerate(hits):
+            want[i, h] = True
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{prefix} eps={eps}: the flattened cover "
+                                 "tree's device query differs from the "
+                                 "host's hits")
+        if launches != 1 + int(st["member_evals"] > 0) \
+                or dispatch.STATS.dispatches:
+            raise AssertionError(f"{prefix} eps={eps}: the device query "
+                                 f"launched {launches} times")
+        total += launches
+        log("index10-ct-device", sweep=prefix, eps=eps, pivots=flat.n_pivots,
+            member_evals=st["member_evals"], s=f"{s:.3f}",
+            launches=launches, hits_equal=True)
+    return total
+
+
+def phase_index(torch, wf, dispatch, args, dev) -> int:
+    """Phase 10: the bench's check size against ``BENCH_query.json``, then
+    its full size against the numpy backend, whose worker processes start
+    first and run while the card works.  Returns the launches."""
+    import concurrent.futures
+    import multiprocessing
+    t_phase = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            INDEX_REF_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {(sweep[0], label): pool.submit(
+                    index_reference, sweep, label, args.windows_index,
+                    args.queries_index)
+                for sweep in INDEX_SWEEPS
+                for label in index_configs(sweep[1], sweep[3],
+                                           device="cpu")}
+        total = phase_index_check(torch, wf, dispatch, dev)
+        total += phase_index_full(torch, wf, dispatch, args, dev, refs)
+    log("index10-done", launches=total,
+        s=f"{time.perf_counter() - t_phase:.2f}")
+    return total
+
+
+# -- phase 11: training at full width -----------------------------------------
+
+#: the step that the injected failure stops, and the tolerance the resumed
+#: run's parameters are held to against the uninterrupted run's: the two
+#: replay the same batches through the same kernels, so they differ only
+#: where a kernel sums in an order that can vary between runs
+FAIL_AT = 13
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+
+
+class CounterLog:
+    """Records every ``CountedDistance`` made while it is entered, with the
+    seconds its construction took (on the card: uploading the window
+    table).  ``dedup_corpus`` builds a new counter for each document it
+    keeps, so its dispatches are summed over all of them."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counters = []
+        self.init_s = 0.0
+
+    def __enter__(self):
+        from repro_torch.core import counter as counter_mod
+        self._mod, self._orig = counter_mod, counter_mod.CountedDistance
+        log_ = self
+
+        class Logged(self._orig):
+            def __init__(self, *a, **kw):
+                t0 = time.perf_counter()
+                super().__init__(*a, **kw)
+                log_.torch.cuda.synchronize()
+                log_.init_s += time.perf_counter() - t0
+                log_.counters.append(self)
+
+        counter_mod.CountedDistance = Logged
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.CountedDistance = self._orig
+
+    def totals(self):
+        cs = self.counters
+        return (sum(c.dispatches + c.build_dispatches for c in cs),
+                sum(c.count + c.build_count for c in cs))
+
+
+def phase_train(torch, wf, dispatch, args, dev) -> dict:
+    """Phase 11: ``launch/train.py`` for smollm-360m at its published
+    widths (f32, ``remat="block"``) with ``--dedup``, the same run stopped
+    by an injected failure and resumed, then the example's tail: the
+    trained network's windows indexed and a near-duplicate probed."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core.embedding_retrieval import embed_windows
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry as models
+    from repro_torch.retrieval import RetrievalConfig, Retriever
+    t_phase = time.perf_counter()
+    cfg, mod = models.get("smollm-360m")
+    if cfg.remat != "block":
+        raise AssertionError(f"smollm-360m trains with remat={cfg.remat!r}")
+    steps, batch, seq = args.train_steps, 8, 128
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        def argv(name):
+            return ["--device", str(dev), "--steps", str(steps), "--batch",
+                    str(batch), "--seq", str(seq), "--dedup",
+                    "--dedup-docs", str(args.dedup_docs), "--log-every",
+                    "1", "--ckpt-every", str(10 * steps), "--ckpt-dir",
+                    str(tmp / name)]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with CounterLog(torch) as cl:
+            out, s, launches, ks, rows = drive(
+                torch, wf, dispatch, "train11-cli",
+                lambda: train_cli.main(argv("run")))
+        peak = torch.cuda.max_memory_allocated(dev)
+        shutil.rmtree(tmp / "run")  # one full-width checkpoint: 5.8 GB
+        dispatches, evals = cl.totals()
+        if not launches == dispatch.STATS.dispatches == dispatches:
+            raise AssertionError(f"dedup: {launches} launches, {dispatches} "
+                                 "counted dispatches")
+        if args.dedup_docs >= 70 and len(out["corpus"]) >= args.dedup_docs:
+            raise AssertionError("dedup: the planted near-duplicate of "
+                                 "document 52 was kept")
+        log("train11-dedup", docs_in=args.dedup_docs,
+            kept=len(out["corpus"]),
+            s=f"{out['corpus_s']:.2f}",
+            host_s=f"{out['corpus_s'] - ks:.2f}", kernel_s=f"{ks:.4f}",
+            evals=evals, launches=launches, dispatches=dispatches,
+            counters=len(cl.counters), table_upload_s=f"{cl.init_s:.3f}",
+            rows_mean=f"{np.mean(rows):.0f}", rows_max=max(rows))
+
+        lg = out["log"]
+        losses = [e["loss"] for e in lg]
+        step_s = [e["step_s"] for e in lg]
+        if out["final_step"] != steps or len(lg) != steps \
+                or not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+            raise AssertionError(f"training: {out['final_step']} steps, "
+                                 f"losses {losses}")
+        med = float(np.median(step_s[1:]))
+        log("train11-steps", arch=cfg.name, layers=cfg.n_layers,
+            d_model=cfg.d_model, vocab=cfg.vocab, dtype="float32",
+            remat=cfg.remat, batch=batch, seq=seq, steps=steps,
+            loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+            first_step_s=f"{step_s[0]:.3f}", step_s_median=f"{med:.4f}",
+            tokens_per_s=f"{batch * seq / med:.0f}",
+            peak_bytes=peak, total_s=f"{s:.2f}")
+
+        # the same run, stopped by a failure at step FAIL_AT and resumed
+        # from its emergency checkpoint
+        class Injected(RuntimeError):
+            pass
+
+        def inject(step):
+            if step == FAIL_AT:
+                raise Injected(step)
+
+        targs = train_cli.parser().parse_args(argv("resume"))
+        t0 = time.perf_counter()
+        try:
+            train_cli.trainer_for(targs, cfg, mod, out["corpus"],
+                                  failure_injector=inject).run()
+        except Injected:
+            pass
+        else:
+            raise AssertionError("the injected failure did not fire")
+        resumed = train_cli.trainer_for(targs, cfg, mod,
+                                        out["corpus"]).run()
+        fail_s = time.perf_counter() - t0
+        if resumed["log"][0]["step"] != FAIL_AT + 1 \
+                or resumed["final_step"] != steps:
+            raise AssertionError(f"resume: first logged step "
+                                 f"{resumed['log'][0]['step']}, final "
+                                 f"{resumed['final_step']}")
+        want, got = out["params"].state_dict(), \
+            resumed["params"].state_dict()
+        diffs = {k: float((got[k] - want[k]).abs().max()) for k in want}
+        worst = max(diffs.values())
+        for k in want:
+            if not torch.allclose(got[k], want[k], rtol=RESUME_RTOL,
+                                  atol=RESUME_ATOL):
+                raise AssertionError(f"resume: {k} differs by {diffs[k]}")
+        log("train11-resume", fail_at=FAIL_AT, s=f"{fail_s:.2f}",
+            max_abs_diff=worst, rtol=RESUME_RTOL, atol=RESUME_ATOL)
+        del resumed, got
+
+        # the example's tail: index the trained network's hidden-state
+        # windows and probe with a near-duplicate sequence
+        rng = np.random.default_rng(5)
+        seqs = [out["corpus"][i, :96]
+                for i in range(min(12, len(out["corpus"])))]
+        dup = seqs[3].copy()
+        flips = rng.random(dup.shape) < 0.05
+        dup[flips] = rng.integers(0, cfg.vocab, flips.sum())
+        seqs.append(dup)
+        vecs, meta = embed_windows(mod, out["params"], cfg, seqs, window=16,
+                                   device=dev)
+        ret = Retriever.build(RetrievalConfig(
+            "euclidean", index="embedding", eps_prime=0.02, num_max=5,
+            tight_bounds=True, device=str(dev)), vecs)
+        probe = next(i for i, m in enumerate(meta)
+                     if m.seq_id == len(seqs) - 1)
+        near = ret.query(vecs[probe]).nearest(2.0, tol=1e-3)
+        others = ret.query(vecs[probe]).range(0.5).hits
+        if not near or probe not in others or not np.isfinite(vecs).all():
+            raise AssertionError("the near-duplicate probe retrieved "
+                                 "nothing")
+        twin = next(i for i, m in enumerate(meta)
+                    if m.seq_id == 3 and m.start == meta[probe].start)
+        win = meta[near.first]
+        log("train11-embed", windows=len(vecs), probe_seq=len(seqs) - 1,
+            nearest=f"seq{win.seq_id}@{win.start}",
+            d=f"{near.distances[0]:.4f}", in_range_0_5=len(others),
+            twin_in_range=twin in others,
+            evals=ret.eval_stats()["query"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("train11-done", launches=launches,
+        s=f"{time.perf_counter() - t_phase:.2f}")
+    return dict(launches=launches, loss_first=losses[0],
+                loss_last=losses[-1], step_s=med)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    # 20,000 windows build in 160-210 s on the H100 host; step 4 at lam=40
-    # costs 35-70 s of host plan code per 120-token query and eps there
-    ap.add_argument("--windows-a", type=int, default=20000,
+    # 20,000 windows build in 120-210 s on the H100 host; step 4 at lam=40
+    # costs 25-70 s of host plan code per 120-token query and eps there.
+    # With every path driven, the script took 1,230.55 s at 20,000 windows
+    # and 640 documents on a slow host (limit 1,200 s): both are cut to
+    # half, which cuts about 400 s there
+    ap.add_argument("--windows-a", type=int, default=10000,
                     help="windows of the lam=40 steps 1-4 run")
     ap.add_argument("--queries-a", type=int, default=2,
                     help="queries of the lam=40 steps 1-4 run")
     ap.add_argument("--windows-b", type=int, default=3000,
                     help="windows of the quickstart three-query run")
-    # 640 documents of 256 tokens give 10,240 windows of 16 tokens; the
+    # 320 documents of 256 tokens give 5,120 windows of 16 tokens; the
     # index build over them is host-bound (about n^1.8 evaluations)
-    ap.add_argument("--embed-docs", type=int, default=640,
+    ap.add_argument("--embed-docs", type=int, default=320,
                     help="documents of the smollm-360m embedding run")
     # cell A's window count, over 4 logical workers on the one card
     ap.add_argument("--windows-fleet", type=int, default=20000,
                     help="windows of the phase-8 fleet (and phase 9's)")
+    # benchmarks/bench_query.py's full size (n = 4000, 20 queries)
+    ap.add_argument("--windows-index", type=int, default=4000,
+                    help="windows of each phase-10 full-size sweep")
+    ap.add_argument("--queries-index", type=int, default=20,
+                    help="queries of each phase-10 full-size sweep")
+    ap.add_argument("--train-steps", type=int, default=20,
+                    help="steps of the phase-11 training run")
+    # the reference's CLI filters 128 documents: 192 s on the H100's host
+    # (the filter's cost grows as the square of the documents); the first
+    # 72 hold one planted near-duplicate pair (document 69 is a copy of 52
+    # with 2 % of its tokens redrawn), which the filter must drop
+    ap.add_argument("--dedup-docs", type=int, default=72,
+                    help="documents the phase-11 dedup filter reads")
     args = ap.parse_args(argv)
 
     import torch
@@ -1468,6 +1931,10 @@ def main(argv=None) -> int:
     serve = phase_serve(torch, wf, dispatch, dev, fleet8)
     log("fleet-serve-phases", s=f"{time.perf_counter() - t_fleet:.2f}",
         parity_launches=fleet_launches)
+    t_new = time.perf_counter()
+    index_launches = phase_index(torch, wf, dispatch, args, dev)
+    train = phase_train(torch, wf, dispatch, args, dev)
+    log("index-train-phases", s=f"{time.perf_counter() - t_new:.2f}")
     timing = phase_timing(torch, wf, build, rng, dev, full["sizes"])
     l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
@@ -1477,10 +1944,12 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/wavefront.cu",
         "replaces": "src/repro/kernels/wavefront.py:229",
         "launches": full["launches"] + fleet8["row"]["launches"]
-        + serve["launches"],
+        + serve["launches"] + index_launches + train["launches"],
         "launches_by_path": {"matching": full["launches"],
                              "fleet": fleet8["row"]["launches"],
-                             "serve": serve["launches"]},
+                             "serve": serve["launches"],
+                             "indexes": index_launches,
+                             "train_dedup": train["launches"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

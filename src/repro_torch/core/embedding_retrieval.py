@@ -52,8 +52,9 @@ def embed_windows(model, params, cfg, token_seqs: Sequence[np.ndarray],
             pooled.update((sid, ()) for sid in sids)
             continue
         tokens = torch.as_tensor(np.stack([seqs[i] for i in sids])).to(at)
-        hs = model.forward(params, {"tokens": tokens}, cfg,
-                           return_hidden=True).to(torch.float32)
+        with torch.no_grad():  # a trainer's network records no graph here
+            hs = model.forward(params, {"tokens": tokens}, cfg,
+                               return_hidden=True).to(torch.float32)
         # (B, S, d) -> (B, n_windows, d): means over each window's positions
         w = hs.unfold(1, window, stride).mean(dim=-1)
         w = w.cpu().numpy()

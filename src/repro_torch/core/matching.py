@@ -90,6 +90,7 @@ class _IndexTuning:
     eps_prime: float
     num_max: Optional[int]
     tight_bounds: bool
+    mv_refs: int
 
 
 class SubsequenceMatcher:
@@ -106,7 +107,7 @@ class SubsequenceMatcher:
                  lambda0: int = 1, *,
                  index: str = "refnet", eps_prime: float = 1.0,
                  num_max: Optional[int] = None, tight_bounds: bool = False,
-                 backend: str = "kernel",
+                 mv_refs: int = 5, backend: str = "kernel",
                  lb_cascade=False, batched: bool = True,
                  bulk_build: bool = True, device=None):
         _deprecation.warn_legacy("SubsequenceMatcher")
@@ -128,7 +129,7 @@ class SubsequenceMatcher:
         # config-shaped view, the same mapping the facade uses
         self.index_kwargs: Dict = dict(self.index_spec.tuning(
             _IndexTuning(eps_prime=eps_prime, num_max=num_max,
-                         tight_bounds=tight_bounds)))
+                         tight_bounds=tight_bounds, mv_refs=mv_refs)))
         self.seqs: List[np.ndarray] = []
         self.windows: Optional[np.ndarray] = None
         self.meta: List[seg.Window] = []
@@ -173,8 +174,10 @@ class SubsequenceMatcher:
         ``core.distributed.device_range_query``: ``flatten_net`` reuses the
         net's stored link distances and one stacked dispatch for the rest,
         so no second pair-at-a-time host pass happens here."""
-        if self.index_kind != "refnet":
-            raise ValueError("only the reference net flattens to a FlatNet")
+        if self.index_kind not in ("refnet", "covertree"):
+            raise ValueError(
+                "only the metric hierarchies (refnet, covertree) flatten "
+                "to a FlatNet")
         if self._flat is None or self._flat_level != pivot_level:
             from repro_torch.core.distributed import flatten_net
             self._flat = flatten_net(self.index, pivot_level)

@@ -13,6 +13,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamDef
@@ -57,11 +58,20 @@ def head_mask(cfg, tp: int, dtype=torch.bfloat16, device=None):
     return (torch.arange(He, device=device) < cfg.n_heads).to(dtype)
 
 
-def scan_blocks(block_fn: Callable, h: torch.Tensor, blocks) -> torch.Tensor:
+def scan_blocks(block_fn: Callable, h: torch.Tensor, blocks, *,
+                remat: bool = False) -> torch.Tensor:
     """Apply ``block_fn(h, block)`` for each block in order (the
-    reference's ``lax.scan`` over layer-stacked parameters)."""
+    reference's ``lax.scan`` over layer-stacked parameters).
+
+    ``remat``: while gradients are recorded, each block saves only its
+    input and recomputes its activations in the backward pass (the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    remat = remat and torch.is_grad_enabled()
     for blk in blocks:
-        h = block_fn(h, blk)
+        if remat:
+            h = checkpoint(block_fn, h, blk, use_reentrant=False)
+        else:
+            h = block_fn(h, blk)
     return h
 
 

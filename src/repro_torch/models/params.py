@@ -13,7 +13,10 @@ and a leading ``layers`` axis on every block parameter
   into the ``state_dict`` of the port's ``nn.Module``: the layers axis split
   into one block per layer, and projection weights in ``nn.Linear``'s
   ``(out, in)`` layout;
-* :func:`params_to_jax` is its inverse.
+* :func:`params_to_jax` is its inverse;
+* :func:`port_leaves` maps each of the tree's leaves to the port's tensors
+  (the reference's leaf order, which the optimizer keeps), and
+  :func:`decay_mask` reads AdamW's weight-decay rule off the tree's shapes.
 
 The reference's sharding-only helpers (``abstract_params`` and the logical
 axes' partition specs) have no counterpart on one card; the axes are kept as
@@ -141,22 +144,45 @@ def params_from_jax(tree, *, dtype: Optional[torch.dtype] = None,
     return state
 
 
+def port_leaves(defs):
+    """``(path, ParamDef, port names)`` for every leaf of ``defs``, in the
+    reference's leaf order (``jax.tree.flatten``); a layer-stacked leaf
+    names one port tensor per layer, in layer order."""
+    for path, d in _leaves(defs):
+        leaf = path[-1]
+        if path[0] == "layers":
+            names = [f"layers.{i}.{_port_name(leaf)}"
+                     for i in range(d.shape[0])]
+        else:
+            names = [".".join(path[:-1] + (_port_name(leaf),))]
+        yield path, d, names
+
+
+def decay_mask(defs) -> Dict[str, bool]:
+    """Port parameter name -> whether AdamW's weight decay applies, in the
+    reference's leaf order.
+
+    The reference decays every leaf of its tree with ``ndim >= 2``
+    (``train/optimizer.py``), and its tree stacks the layers, so every
+    per-layer leaf is decayed, norms and QKV biases included, and of the
+    top-level leaves all but ``final_norm``.  The rule is read from the
+    reference's shapes (``defs``), never from the port tensor's ``ndim``:
+    a port block's norm is 1-D, its stacked counterpart 2-D."""
+    return {n: len(d.shape) >= 2
+            for _, d, names in port_leaves(defs) for n in names}
+
+
 def params_to_jax(state: Dict[str, torch.Tensor], defs) -> dict:
     """Inverse of :func:`params_from_jax`: the port's ``state_dict`` ->
     numpy arrays in the reference's layout, shaped by ``defs`` (the model's
     ``param_defs``)."""
     out: dict = {}
-    for path, d in _leaves(defs):
+    for path, d, names in port_leaves(defs):
         leaf = path[-1]
-        if path[0] == "layers":
-            ts = [state[f"layers.{i}.{_port_name(leaf)}"]
-                  for i in range(d.shape[0])]
-            shape = d.shape[1:]
-        else:
-            ts = [state[".".join(path[:-1] + (_port_name(leaf),))]]
-            shape = d.shape
-        back = [(t.T if leaf in _LINEAR_IN_AXES else t).reshape(shape)
-                for t in ts]
-        a = torch.stack(back) if path[0] == "layers" else back[0]
+        stacked = path[0] == "layers"
+        shape = d.shape[1:] if stacked else d.shape
+        back = [(state[n].T if leaf in _LINEAR_IN_AXES else state[n]
+                 ).reshape(shape) for n in names]
+        a = torch.stack(back) if stacked else back[0]
         _set(out, path, a.detach().cpu().numpy())
     return out

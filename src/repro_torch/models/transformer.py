@@ -10,6 +10,8 @@ layout: :func:`~repro_torch.models.params.init_params` over
 :func:`param_defs` for random weights, or the reference's own tree as numpy
 arrays.  :func:`forward` has the reference's signature; with
 ``return_hidden=True`` it returns the hidden states before the final norm.
+Training calls the module itself under autograd (``train/train_state.py``);
+with ``cfg.remat == "block"`` each block is recomputed in the backward pass.
 Prefill caches and decoding (``return_cache``, ``cache_defs``,
 ``decode_step``) come with the serving slice.
 """
@@ -140,7 +142,7 @@ class Transformer(nn.Module):
         pos = torch.arange(S, device=h.device)
         cos, sin = rope_tables(pos[None, :], cfg.head_dim, cfg.rope_theta)
         h = common.scan_blocks(_block(cfg, cos, sin, S <= FULL_ATTN_MAX), h,
-                               self.layers)
+                               self.layers, remat=(cfg.remat == "block"))
         if return_hidden:
             return h
         return common.unembed(self, h)
@@ -161,9 +163,14 @@ def build(cfg, params, *, dtype=None, device=None) -> Transformer:
 def forward(params: Transformer, batch: dict, cfg,
             return_hidden: bool = False):
     """The reference's ``forward(params, batch, cfg)``: logits (B, S, V), or
-    the hidden states (B, S, d) before the final norm."""
+    the hidden states (B, S, d) before the final norm.
+
+    A network built by :func:`build` runs in inference mode; one whose
+    parameters require gradients (the trainer's) is differentiated through
+    while autograd is enabled."""
     if params.cfg != cfg:
         raise ValueError(f"the model was built for {params.cfg.name!r}, "
                          f"not {cfg.name!r}")
-    with torch.inference_mode():
+    trains = torch.is_grad_enabled() and params.out.weight.requires_grad
+    with torch.inference_mode(not trains):
         return params(batch, return_hidden=return_hidden)

@@ -14,7 +14,7 @@ lam, lambda0   subsequence-matching scope (§3.2).  ``lam=None`` = plain
                window-level retrieval over the database rows; ``lam`` set =
                the full 5-step matching pipeline
 index          index kind from the retrieval registry
-               (``refnet|linear|embedding``)
+               (``refnet|covertree|mv|linear|embedding``)
 execution      ``host`` (sequential frontier drive, classic counts),
                ``batched`` (frontier engine, one dispatch per merged
                round) or ``fleet`` (the elastic sharded fleet of
@@ -40,9 +40,10 @@ fleet_mode     fleet serving mode: ``rounds`` (default — shared-frontier
                round-based serving through the packed fused-ε dispatcher,
                eval counts match the host loop) or ``oneshot`` (one stacked
                device query over the flattened nets); fleet execution only
-eps_prime,     reference-net tuning knobs (radii / parent cap /
-num_max,       exact-vs-Lemma-4 bounds)
-tight_bounds
+eps_prime,     index tuning knobs (reference-net radii / parent cap /
+num_max,       exact-vs-Lemma-4 bounds / MV reference count)
+tight_bounds,
+mv_refs
 bulk_build     build hierarchies through the cohort loader (default);
                ``False`` = sequential Alg.-1 inserts (legacy counts)
 max_cohort     cohort size cap for the bulk loader / fleet shard builds
@@ -60,8 +61,7 @@ dropped: ``interpret`` (interpret-mode Pallas off-TPU), ``kernel_exec``
 (banded Pallas kernel vs ``lax.scan`` twin) and ``kernel_tile`` (VMEM band
 depth); so is ``kernel_backend``, the reference's alias of ``backend``.
 On a CUDA device the kernel runs; its plain torch version is reached only
-for CPU tensors, or by calling it by name.  The MV index (``mv_refs``)
-comes with its slice.
+for CPU tensors, or by calling it by name.
 
 ``to_json`` / ``from_json`` round-trip the config.
 """
@@ -96,6 +96,7 @@ class RetrievalConfig:
     eps_prime: float = 1.0
     num_max: Optional[int] = None
     tight_bounds: bool = False
+    mv_refs: int = 5
     bulk_build: bool = True
     max_cohort: int = 256
     serve_max_inflight: int = 32
@@ -146,6 +147,8 @@ class RetrievalConfig:
                     "(set lam=None)")
         if spec.requires_metric:
             dist_base.require_metric(dist)       # indexed path, §5
+        if self.mv_refs < 1:
+            raise ValueError(f"mv_refs must be >= 1; got {self.mv_refs}")
 
         if self.execution == "fleet":
             if not self.workers:

@@ -208,7 +208,7 @@ class _MatcherEngine:
         self.matcher = SubsequenceMatcher(
             cfg.dist, cfg.lam, cfg.lambda0, index=cfg.index,
             eps_prime=cfg.eps_prime, num_max=cfg.num_max,
-            tight_bounds=cfg.tight_bounds,
+            tight_bounds=cfg.tight_bounds, mv_refs=cfg.mv_refs,
             backend=cfg.backend, lb_cascade=cfg.lb_cascade,
             batched=(cfg.execution == "batched"),
             bulk_build=cfg.bulk_build, device=cfg.device).build(seqs)

@@ -11,10 +11,8 @@ the distance — from *how* — the index):
   the declarative facts the facade needs (does it require metricity, does
   it support the cohort bulk loader, which config fields map onto its
   constructor, how are database rows / query rows shaped).  The built-in
-  kinds ported so far (``refnet``, ``linear``, ``embedding``) register
-  themselves here; ``@register_index("mykind")`` adds new ones.  The
-  reference's other kinds (``covertree``, ``mv``) are not ported yet and
-  raise ``NotImplementedError`` when named.
+  kinds (``refnet``, ``covertree``, ``mv``, ``linear``, ``embedding``)
+  register themselves here; ``@register_index("mykind")`` adds new ones.
 
 Factories import the core classes lazily so this module stays import-cycle
 free (core modules may import the registry to resolve index kinds).
@@ -117,18 +115,7 @@ def unregister_index(name: str) -> None:
     _INDEXES.pop(name, None)
 
 
-#: index kinds of the reference that this port does not have yet
-UNPORTED_INDEXES = {
-    "covertree": "ROADMAP.md Queue 1: other index kinds",
-    "mv": "ROADMAP.md Queue 1: other index kinds",
-}
-
-
 def resolve_index(name: str) -> IndexSpec:
-    if name not in _INDEXES and name in UNPORTED_INDEXES:
-        raise NotImplementedError(
-            f"index kind {name!r} is not ported yet "
-            f"({UNPORTED_INDEXES[name]})")
     if name not in _INDEXES:
         raise KeyError(
             f"unknown index kind {name!r}; have {sorted(_INDEXES)}")
@@ -151,6 +138,21 @@ def _refnet_tuning(cfg) -> dict:
 def _make_refnet(dist, data, *, counter=None, **kw):
     from repro_torch.core.refnet import ReferenceNet
     return ReferenceNet(dist, data, counter=counter, **kw)
+
+
+@register_index("covertree", requires_metric=True, bulk=True,
+                tuning=lambda cfg: dict(eps_prime=cfg.eps_prime,
+                                        tight_bounds=cfg.tight_bounds))
+def _make_covertree(dist, data, *, counter=None, **kw):
+    from repro_torch.core.covertree import CoverTree
+    return CoverTree(dist, data, counter=counter, **kw)
+
+
+@register_index("mv", requires_metric=True,
+                tuning=lambda cfg: dict(n_refs=cfg.mv_refs))
+def _make_mv(dist, data, *, counter=None, **kw):
+    from repro_torch.core.refindex import MVReferenceIndex
+    return MVReferenceIndex(dist, data, counter=counter, **kw)
 
 
 @register_index("linear", requires_metric=False)

@@ -200,3 +200,39 @@ def test_device_range_query_on_the_card_matches_the_cpu(cuda_device, name,
     np.testing.assert_array_equal(got, want)
     assert gst == wst and got.any()
     assert launches == 1 + (gst["member_evals"] > 0)
+
+
+@pytest.mark.gpu
+def test_comparison_indexes_on_the_card_match_the_cpu(cuda_device):
+    """One MV build and one cover-tree query on the card: every counted
+    dispatch is one launch, and hits, counts, references and the MV table
+    equal the numpy backend's on the CPU (Levenshtein: exact)."""
+    from repro_torch.core.counter import CountedDistance
+    from repro_torch.core.covertree import CoverTree
+    from repro_torch.core.refindex import MVReferenceIndex
+    from repro_torch.data.synthetic import proteins
+    from repro_torch.distances import get
+    data = proteins(600, seed=3)
+    lev = get("levenshtein")
+
+    def counter(dev, backend="kernel"):
+        return CountedDistance(lev, data, backend=backend, device=dev)
+
+    before = wf.LAUNCHES
+    mv = MVReferenceIndex(lev, data, n_refs=8,
+                          counter=counter(cuda_device)).build()
+    assert wf.LAUNCHES - before == mv.counter.build_dispatches > 0
+    want = MVReferenceIndex(lev, data, n_refs=8,
+                            counter=counter("cpu", "numpy")).build()
+    assert mv.refs == want.refs
+    np.testing.assert_array_equal(mv.table, want.table)
+
+    ct = CoverTree(lev, data, counter=counter(cuda_device)).build_batched()
+    ref = CoverTree(lev, data, counter=counter("cpu", "numpy")
+                    ).build_batched()
+    before = wf.LAUNCHES
+    hits = ct.range_query(data[17], 3.0)
+    assert wf.LAUNCHES - before == ct.counter.dispatches > 0
+    assert hits == ref.range_query(data[17], 3.0) and 17 in hits
+    assert (ct.counter.count, ct.counter.build_count) == \
+        (ref.counter.count, ref.counter.build_count)

@@ -212,9 +212,12 @@ def test_config_round_trips_and_unported_features_raise():
     fleet = RetrievalConfig("erp", execution="fleet", workers=2,
                             device="cpu")
     assert fleet.workers == ("w0", "w1")
+    # the comparison indexes build (they raised before they were ported)
     for kind in ("covertree", "mv"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            RetrievalConfig("erp", index=kind)
+        built = Retriever.build(RetrievalConfig("erp", index=kind,
+                                                device="cpu"),
+                                _trajectories(20, 6, seed=1))
+        assert built.query(built.index.data[4]).range(0.0).hits == [4]
     with pytest.raises(ValueError, match="backend"):
         RetrievalConfig("erp", backend="pallas")
     data = _trajectories(20, 6, seed=1)
