@@ -39,7 +39,22 @@ version on the card.  Then it drives the port's two paths:
   smollm-360m at its published widths in f32 with ``--dedup`` (the
   retrieval stack as a data filter, through the wavefront kernel), the
   same run stopped by an injected failure and resumed, and the example's
-  tail: the trained network's windows indexed and a near-duplicate probed.
+  tail: the trained network's windows indexed and a near-duplicate probed;
+* the LM stack's decode path (phase 12): qwen3-4b whole at its published
+  widths and deepseek-v2-236b at its published widths cut to a few layers
+  (random weights from a seed), prefill caches and ``decode_step`` held to
+  the full forward in f32 (one step, and for qwen3-4b eight greedy steps
+  against the forward's argmax), then prefill and decode timed in bf16
+  against the decode step's memory bound, with peak memory, the card's
+  busy time in one traced step and, for the MoE model, the share of
+  routed assignments the capacity dispatch drops (every dispatch's kept
+  set held to a token-major oracle in plain Python, beside the router's
+  per-expert load and the correlation of its logits across tokens).
+
+Levenshtein token ids over all of int32 (``2**24`` and up, where f32
+rounds ids together) are held to the numpy backend through the counter
+on the card, and the kernel to its plain version on ids whose bit
+patterns include NaNs as floats (phase 4b).
 
 The wavefront kernel takes each dispatch's rows as they are (the run fails
 if the reference's padded layout is built on the card path), and the
@@ -186,13 +201,17 @@ def make_rows(rng, mode, B, lx_range, ly_range, d, *, scale=1.0,
 
 def operands(mode, xs, ys, lx, ly, dev):
     """The kernel's operands as a dispatch hands them: the rows as they are
-    (f32 tokens or f32 series ``(B, L, d)``), lengths ``(B, 2)`` int32."""
+    (tokens as int32 ids, ``wavefront.lev_operand``, or f32
+    series ``(B, L, d)``), lengths ``(B, 2)`` int32."""
     import numpy as np
     import torch
+    from repro_torch.kernels.wavefront import lev_operand
+    lens = torch.as_tensor(np.stack([lx, ly], 1).astype(np.int32),
+                           device=dev)
+    if mode == "lev":
+        return [lev_operand(xs, dev), lev_operand(ys, dev), lens]
     return [torch.as_tensor(xs, device=dev, dtype=torch.float32),
-            torch.as_tensor(ys, device=dev, dtype=torch.float32),
-            torch.as_tensor(np.stack([lx, ly], 1).astype(np.int32),
-                            device=dev)]
+            torch.as_tensor(ys, device=dev, dtype=torch.float32), lens]
 
 
 #: H100 SXM: operations that are not fused multiply-adds (adds, mins,
@@ -399,6 +418,52 @@ def phase_main_parity(torch, wf, rng, dev) -> None:
         hits=sum(len(h) for h in got["kernel"][0]),
         stats=json.dumps(got["kernel"][1]),
         s=f"{time.perf_counter() - t0:.2f}")
+
+
+# -- phase 4b: Levenshtein token ids of the whole int32 range -----------------
+
+def phase_lev_ids(torch, wf, dev) -> int:
+    """Token ids that f32 rounds together (``2**24`` and up, near
+    ``2**31 - 1``) through the counter's default backend on the card, held
+    to the numpy backend (4.0 for four distinct pairs), and the kernel
+    bit-equal to its plain version on ids drawn from all of int32 (some
+    bit patterns are NaNs as floats).  Returns the launches of the counter
+    cases (one each)."""
+    import numpy as np
+    from repro_torch.core.counter import CountedDistance
+    from repro_torch.distances import get
+    t0 = time.perf_counter()
+    lev = get("levenshtein")
+    wf.LAUNCHES = 0
+    got = []
+    for base in (1 << 24, (1 << 31) - 8):
+        x = np.array([base + 2 * i for i in range(4)], np.int64)
+        data = np.stack([x, x + 1])
+        d_card = CountedDistance(lev, data, device=dev).eval(x, [1])[0]
+        d_host = CountedDistance(lev, data, backend="numpy").eval(x, [1])[0]
+        if not float(d_card) == float(d_host) == 4.0:
+            raise AssertionError(f"levenshtein ids from {base}: card "
+                                 f"{d_card}, numpy {d_host}, expected 4")
+        got.append(float(d_card))
+    launches = wf.LAUNCHES
+    if launches != 2:
+        raise AssertionError(f"lev ids: {launches} launches for 2 counted "
+                             "dispatches")
+    rng = np.random.default_rng(24)
+    B, L = 4096, 20
+    ids = rng.integers(-(1 << 31), 1 << 31, size=(B, L), dtype=np.int64)
+    ys = np.where(rng.random((B, L)) < 0.6, ids, ids ^ 1)
+    lx = rng.integers(1, L + 1, B)
+    ly = rng.integers(1, L + 1, B)
+    lx[0] = ly[0] = L
+    ops = operands("lev", ids, ys, lx, ly, dev)
+    nans = int(torch.isnan(ops[0].view(torch.float32)).sum())
+    eps = torch.full((B,), 8.0, device=dev)
+    compare(wf, "lev", ops, eps)
+    log("lev-ids", counter_dist=got, numpy_dist=4.0, launches=launches,
+        wide_rows=B, nan_bit_patterns=nans, wide="bit-equal",
+        s=f"{time.perf_counter() - t0:.2f}")
+    return launches
 
 
 # -- phase 5: full-size main path on the card ---------------------------------
@@ -1862,6 +1927,430 @@ def phase_train(torch, wf, dispatch, args, dev) -> dict:
                 loss_last=losses[-1], step_s=med)
 
 
+# -- phase 12: decode on the LM stack ------------------------------------------
+
+#: the reference's decode-equals-forward tolerance
+#: (tests/test_models_smoke.py::test_decode_matches_forward)
+DECODE_RTOL, DECODE_ATOL = 2e-2, 2e-3
+#: greedy steps checked against a full forward over the growing sequence
+GREEDY_STEPS = 8
+
+
+def sync_s(torch, t0) -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def build_model(torch, mod, cfg, dtype, dev, seed):
+    """A model of ``cfg`` with seeded random weights drawn on the card (the
+    reference's fan-in rule): the layout tree is drawn, handed to ``build``
+    and dropped, so only the linear layers' transposed copies exist twice,
+    for a moment."""
+    from repro_torch.models.params import init_params
+    gen = torch.Generator(dev).manual_seed(seed)
+    tree = init_params(mod.param_defs(cfg), gen, dtype, dev)
+    model = mod.build(cfg, tree, dtype=dtype, device=dev)
+    del tree
+    return model
+
+
+def logits_of(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def decode_parity(torch, mod, model, cfg, tokens, label):
+    """The reference's check: ``decode_step`` after a prefill of S-1 tokens
+    gives ``forward``'s logits at S-1.  Returns the largest difference."""
+    from repro_torch.models.common import grow_cache
+    S = tokens.shape[1]
+    full = logits_of(mod.forward(model, {"tokens": tokens}, cfg))
+    cache = mod.forward(model, {"tokens": tokens[:, :S - 1]}, cfg,
+                        return_cache=True)[-1]
+    lg, cache = mod.decode_step(model, grow_cache(cache, S + 8),
+                                tokens[:, S - 1:S], cfg)
+    want = full[:, S - 1]
+    err = float((lg[:, 0] - want).abs().max())
+    if not torch.allclose(lg[:, 0], want, rtol=DECODE_RTOL,
+                          atol=DECODE_ATOL) or int(cache["pos"]) != S - 1:
+        raise AssertionError(f"{label}: decode differs from forward by {err}")
+    return err, float(want.abs().max())
+
+
+def greedy_parity(torch, mod, model, cfg, prompt):
+    """GREEDY_STEPS greedy decode steps give the tokens of the argmax of a
+    full forward over the growing sequence; returns the largest logit
+    difference and the smallest top-2 margin of the forward's logits."""
+    from repro_torch.models.common import grow_cache
+    P = prompt.shape[1]
+    logits, cache = mod.forward(model, {"tokens": prompt}, cfg,
+                                return_cache=True)
+    cache = grow_cache(cache, P + GREEDY_STEPS + 1)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    seq = torch.cat([prompt, tok], dim=1)
+    worst, margin = 0.0, float("inf")
+    for step in range(GREEDY_STEPS):
+        lg, cache = mod.decode_step(model, cache, tok, cfg)
+        full = mod.forward(model, {"tokens": seq}, cfg)[:, -1]
+        worst = max(worst, float((lg[:, 0] - full).abs().max()))
+        top2 = full.topk(2, dim=-1).values
+        margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
+        tok = lg[:, 0].argmax(-1, keepdim=True)
+        if not torch.equal(tok[:, 0], full.argmax(-1)):
+            raise AssertionError(f"greedy step {step}: decode chose "
+                                 f"{tok[:, 0].tolist()}, forward "
+                                 f"{full.argmax(-1).tolist()}")
+        if not torch.allclose(lg[:, 0], full, rtol=DECODE_RTOL,
+                              atol=DECODE_ATOL):
+            raise AssertionError(f"greedy step {step}: logits differ by "
+                                 f"{worst}")
+        seq = torch.cat([seq, tok], dim=1)
+    return worst, margin
+
+
+def cache_len(cache) -> int:
+    return next(v.shape[2] for k, v in cache.items()
+                if k != "pos" and v is not None)
+
+
+def cache_bytes(cache) -> int:
+    return sum(v.numel() * v.element_size() for k, v in cache.items()
+               if k != "pos" and v is not None)
+
+
+def timed_decode(torch, mod, model, cfg, B, P, steps, dev, rng, drops=None):
+    """Prefill ``B`` prompts of ``P`` tokens and decode ``steps`` greedy
+    tokens, after a short untimed warm-up.  Returns the seconds of the
+    prefill, of the cache's growth and of the decode, the final cache's
+    bytes (the last step's logits must be finite) and the
+    :func:`profile_step` of one more step.  ``drops`` (a
+    :class:`MoeProbe`) marks the prefill and the decode."""
+    from repro_torch.models.common import grow_cache
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                             device=dev)
+    warm = mod.forward(model, {"tokens": prompt[:, :16]}, cfg,
+                       return_cache=True)[-1]
+    warm = grow_cache(warm, 18)
+    for _ in range(2):
+        _, warm = mod.decode_step(model, warm, prompt[:, :1], cfg)
+    del warm
+    if drops is not None:
+        drops.mark("warm-up")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = mod.forward(model, {"tokens": prompt}, cfg, return_cache=True)
+    prefill_s = sync_s(torch, t0)
+    if drops is not None:
+        drops.mark("prefill")
+    t0 = time.perf_counter()
+    cache = grow_cache(out[-1], P + steps + 1)
+    grow_s = sync_s(torch, t0)
+    tok = logits_of(out)[:, -1].argmax(-1, keepdim=True)
+    del out
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, cache = mod.decode_step(model, cache, tok, cfg)
+        tok = lg[:, 0].argmax(-1, keepdim=True)
+    decode_s = sync_s(torch, t0)
+    if drops is not None:
+        drops.mark("decode")
+    # one more step, traced: the card's busy time within a step
+    if int(cache["pos"]) + 1 < cache_len(cache):
+        busy = profile_step(torch, lambda: mod.decode_step(model, cache, tok,
+                                                           cfg))
+    else:
+        busy = (float("nan"), 0, float("nan"))
+    if int(cache["pos"]) != P - 1 + steps or not bool(
+            torch.isfinite(lg).all()):
+        raise AssertionError(f"decode ended at pos {int(cache['pos'])}, "
+                             f"finite logits {bool(torch.isfinite(lg).all())}")
+    return prefill_s, grow_s, decode_s, cache_bytes(cache), busy
+
+
+def profile_step(torch, fn) -> tuple:
+    """One call of ``fn`` under ``torch.profiler`` with CUDA activity:
+    (the summed device time of its kernels in ms, the number of kernels
+    and copies, the wall ms of the traced call).  The device time over the
+    wall time is the share the card is busy."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = sync_s(torch, t0) * 1e3
+    dev_us, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += e.time_range.elapsed_us()
+            n += 1
+    return dev_us / 1e3, n, wall
+
+
+def step_bound_ms(model, cache_b: int) -> tuple:
+    """The least time of one decode step on this card: the bytes it must
+    read, every parameter but the token table (a step gathers B of its
+    rows) and the cache, over the HBM rate.  Returns (bound ms, weight
+    bytes)."""
+    w = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+            if n != "tok.weight")
+    return (w + cache_b) / PEAK_BYTES * 1e3, w
+
+
+def kept_oracle(idx, E: int, capacity: int) -> set:
+    """Token-major first-come ranks in plain Python: assignment ``(t, e)``
+    is kept while expert ``e`` has fewer than ``capacity`` earlier ones."""
+    seen, kept = [0] * E, set()
+    for t, row in enumerate(idx.tolist()):
+        for e in row:
+            if seen[e] < capacity:
+                kept.add((t, e))
+            seen[e] += 1
+    return kept
+
+
+def balanced_drop_share(rng, T: int, k: int, E: int, capacity: int,
+                        trials: int = 4) -> float:
+    """The share of assignments the capacity dispatch would drop if every
+    token drew its ``k`` experts uniformly and independently of the
+    others: what a balanced router loses at this capacity."""
+    dropped = 0
+    for _ in range(trials):
+        idx = rng.random((T, E)).argsort(axis=1)[:, :k]
+        dropped += T * k - len(kept_oracle(idx, E, capacity))
+    return dropped / (trials * T * k)
+
+
+class MoeProbe:
+    """Keeps, while entered, what the MoE layers route
+    (``models.layers.moe_router`` and ``moe_dispatch`` wrapped): each
+    router's input rows and weight, and each dispatch's expert ids and
+    token buffer, by stretches closed with :meth:`mark`.  Nothing is
+    computed while the model runs (references only); :meth:`check` holds
+    every kept set to :func:`kept_oracle` afterwards, and :meth:`stats`
+    reads drops, loads and the correlation of the routing."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._mod = layers
+        self._router, self._dispatch = layers.moe_router, layers.moe_dispatch
+        self.routers = []   # (x, wr) per router call
+        self.calls = []     # (idx, buf_t, n_experts, capacity) per dispatch
+        self.marks = {}     # name -> (first call, end call)
+        self._start = 0
+
+        def router(x, wr, top_k):
+            self.routers.append((x, wr))
+            return self._router(x, wr, top_k)
+
+        def dispatch(gates, idx, n_experts, capacity):
+            buf_t, buf_g = self._dispatch(gates, idx, n_experts, capacity)
+            self.calls.append((idx, buf_t, n_experts, capacity))
+            return buf_t, buf_g
+
+        layers.moe_router, layers.moe_dispatch = router, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe_router = self._router
+        self._mod.moe_dispatch = self._dispatch
+
+    def mark(self, name: str) -> None:
+        self.marks[name] = (self._start, len(self.calls))
+        self._start = len(self.calls)
+
+    def check(self) -> int:
+        """Every dispatch kept exactly the oracle's assignments; returns
+        the number of dispatches checked."""
+        for n, (idx, buf_t, E, cap) in enumerate(self.calls):
+            bt = buf_t.cpu().numpy()
+            kept = {(int(t) - 1, e) for e in range(E) for t in bt[e] if t}
+            want = kept_oracle(idx.cpu().numpy(), E, cap)
+            if kept != want:
+                raise AssertionError(
+                    f"moe dispatch {n} (T={idx.shape[0]}, capacity {cap}): "
+                    f"{len(kept ^ want)} assignments differ from the "
+                    "token-major oracle")
+        return len(self.calls)
+
+    def dropped_share(self, name: str) -> float:
+        a, b = self.marks[name]
+        assigned = sum(c[0].numel() for c in self.calls[a:b])
+        kept = sum(int((c[1] > 0).sum()) for c in self.calls[a:b])
+        return (assigned - kept) / max(assigned, 1)
+
+    def stats(self, torch, name: str) -> dict:
+        """Per MoE layer of stretch ``name``: the capacity, the largest
+        expert load, the experts loaded past capacity, the mean pairwise
+        cosine of the router's input rows and the mean pairwise correlation
+        of the tokens' router logits (0 when tokens route independently)."""
+        a, b = self.marks[name]
+
+        def mean_pair(rows):
+            rows = rows / rows.norm(dim=1, keepdim=True).clamp_min(1e-30)
+            T, tot = rows.shape[0], rows.sum(dim=0)
+            return float((tot @ tot - T) / (T * (T - 1)))
+
+        out = {k: [] for k in ("capacity", "max_load", "over_capacity",
+                               "input_cos", "logit_corr")}
+        for (idx, _, E, cap), (x, wr) in zip(self.calls[a:b],
+                                             self.routers[a:b]):
+            load = torch.bincount(idx.reshape(-1), minlength=E)
+            logits = (x.float() @ wr.float().T)
+            out["capacity"].append(cap)
+            out["max_load"].append(int(load.max()))
+            out["over_capacity"].append(int((load > cap).sum()))
+            out["input_cos"].append(round(mean_pair(x.float()), 4))
+            out["logit_corr"].append(round(mean_pair(
+                logits - logits.mean(dim=1, keepdim=True)), 4))
+        return out
+
+
+def phase_decode(torch, wf, pl2, args, dev) -> dict:
+    """Phase 12: the LM stack's decode path.  (a) qwen3-4b whole at its
+    published widths: decode held to forward in f32 (one step after a
+    prefill, then greedy steps), then prefill and decode timed in bf16.
+    (b) deepseek-v2-236b at its published widths, depth cut: the same check
+    in f32 at 1 dense + 1 MoE layer with ``capacity_factor=100`` (no drops),
+    then timed in bf16 at 1 dense + ``--moe-layers`` MoE layers at the
+    default capacity factor, with the share of routed assignments dropped.
+    Each model is freed before the next is built.  The path launches
+    neither hand-written kernel (checked with the counts zeroed)."""
+    import dataclasses
+    import gc
+    import numpy as np
+    from repro_torch.models import registry as models
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    wf.LAUNCHES = pl2.LAUNCHES = 0
+    out = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) qwen3-4b, whole
+    cfg, mod = models.get("qwen3-4b")
+    t0 = time.perf_counter()
+    model = build_model(torch, mod, cfg, torch.float32, dev, seed=12)
+    build_s = sync_s(torch, t0)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 33)), device=dev)
+    err, scale = decode_parity(torch, mod, model, cfg, tokens, "qwen3-4b")
+    g_err, margin = greedy_parity(torch, mod, model, cfg, tokens[:, :16])
+    log("decode12-qwen3-parity", layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}",
+        qk_norm=cfg.qk_norm, vocab=cfg.vocab, params=n_params,
+        dtype="float32", build_s=f"{build_s:.2f}", decode_max_abs_err=err,
+        logit_scale=f"{scale:.3f}", greedy_steps=GREEDY_STEPS,
+        greedy_max_abs_err=g_err, greedy_min_top2_margin=f"{margin:.4g}",
+        rtol=DECODE_RTOL, atol=DECODE_ATOL)
+    del model
+    free()
+    model = build_model(torch, mod, cfg, torch.bfloat16, dev, seed=12)
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    B, P, steps = args.decode_batch, args.prompt_len, args.decode_steps
+    torch.cuda.reset_peak_memory_stats(dev)
+    pre_s, grow_s, dec_s, cb, busy = timed_decode(torch, mod, model, cfg, B,
+                                                  P, steps, dev, rng)
+    bound, wbytes = step_bound_ms(model, cb)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = dec_s / steps * 1e3
+    log("decode12-qwen3-timed", dtype="bfloat16", batch=B, prompt=P,
+        steps=steps, prefill_s=f"{pre_s:.4f}",
+        prefill_tokens_per_s=f"{B * P / pre_s:.0f}",
+        grow_cache_s=f"{grow_s:.4f}", decode_ms_per_step=f"{ms:.3f}",
+        decode_tokens_per_s=f"{B * steps / dec_s:.0f}",
+        step_bound_ms=f"{bound:.3f}", bound_share=f"{bound / ms:.3f}",
+        traced_step_device_ms=f"{busy[0]:.3f}", traced_step_kernels=busy[1],
+        traced_step_wall_ms=f"{busy[2]:.3f}",
+        weight_bytes=wbytes, cache_bytes=cb, build_peak_bytes=build_peak,
+        peak_bytes=peak)
+    out["qwen3"] = dict(prefill_s=pre_s, decode_ms=ms, bound_ms=bound,
+                        peak=peak, busy=busy)
+    del model
+    free()
+
+    # (b) deepseek-v2-236b at its published widths, depth cut
+    full, mod = models.get("deepseek-v2-236b")
+    nd = full.first_dense_layers
+    cfg = dataclasses.replace(full, n_layers=nd + 1, capacity_factor=100.0)
+    t0 = time.perf_counter()
+    model = build_model(torch, mod, cfg, torch.float32, dev, seed=13)
+    build_s = sync_s(torch, t0)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)), device=dev)
+    err, scale = decode_parity(torch, mod, model, cfg, tokens, "deepseek-v2")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log("decode12-deepseek-parity", layers=f"{nd}+{cfg.n_layers - nd}",
+        d_model=cfg.d_model, experts=f"{cfg.n_experts}+"
+        f"{cfg.n_shared_experts} top{cfg.top_k}", q_lora=cfg.q_lora,
+        kv_lora=cfg.kv_lora, params=n_params, dtype="float32",
+        capacity_factor=cfg.capacity_factor, build_s=f"{build_s:.2f}",
+        decode_max_abs_err=err, logit_scale=f"{scale:.3f}",
+        rtol=DECODE_RTOL, atol=DECODE_ATOL, peak_bytes=peak)
+    del model
+    free()
+    cfg = dataclasses.replace(full, n_layers=nd + args.moe_layers)
+    t0 = time.perf_counter()
+    model = build_model(torch, mod, cfg, torch.bfloat16, dev, seed=13)
+    build_s = sync_s(torch, t0)
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, P, steps = args.decode_batch, args.prompt_len // 2, \
+        args.decode_steps // 2
+    torch.cuda.reset_peak_memory_stats(dev)
+    with MoeProbe() as drops:
+        pre_s, grow_s, dec_s, cb, busy = timed_decode(
+            torch, mod, model, cfg, B, P, steps, dev, rng, drops)
+    checked = drops.check()
+    route = drops.stats(torch, "prefill")
+    T = B * P
+    balanced = balanced_drop_share(rng, T, cfg.top_k, cfg.n_experts,
+                                   route["capacity"][0])
+    bound, wbytes = step_bound_ms(model, cb)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if max(build_peak, peak) >= 80e9:
+        raise AssertionError(f"deepseek-v2 cut: peak memory "
+                             f"{max(build_peak, peak)} bytes")
+    ms = dec_s / steps * 1e3
+    log("decode12-deepseek-timed", layers=f"{nd}+{args.moe_layers}",
+        params=n_params, dtype="bfloat16", build_s=f"{build_s:.2f}",
+        capacity_factor=cfg.capacity_factor, batch=B, prompt=P, steps=steps,
+        prefill_s=f"{pre_s:.4f}",
+        prefill_tokens_per_s=f"{B * P / pre_s:.0f}",
+        decode_ms_per_step=f"{ms:.3f}",
+        decode_tokens_per_s=f"{B * steps / dec_s:.0f}",
+        step_bound_ms=f"{bound:.3f}", bound_share=f"{bound / ms:.3f}",
+        traced_step_device_ms=f"{busy[0]:.3f}", traced_step_kernels=busy[1],
+        traced_step_wall_ms=f"{busy[2]:.3f}",
+        prefill_dropped_share=f"{drops.dropped_share('prefill'):.4f}",
+        decode_dropped_share=f"{drops.dropped_share('decode'):.4f}",
+        kept_sets_equal_oracle=checked,
+        balanced_router_dropped_share=f"{balanced:.4f}",
+        prefill_capacity=route["capacity"],
+        prefill_max_expert_load=route["max_load"],
+        prefill_experts_over_capacity=route["over_capacity"],
+        prefill_router_input_cos=route["input_cos"],
+        prefill_router_logit_corr=route["logit_corr"],
+        weight_bytes=wbytes, cache_bytes=cb, build_peak_bytes=build_peak,
+        peak_bytes=peak)
+    out["deepseek"] = dict(prefill_s=pre_s, decode_ms=ms, bound_ms=bound,
+                           peak=peak, busy=busy,
+                           dropped=(drops.dropped_share("prefill"),
+                                    drops.dropped_share("decode")))
+    del model
+    free()
+    out["launches"] = {"wavefront": wf.LAUNCHES, "pairwise_l2": pl2.LAUNCHES}
+    if any(out["launches"].values()):
+        raise AssertionError(f"decode: hand-written kernels launched "
+                             f"{out['launches']}")
+    log("decode12-done", launches_wavefront=wf.LAUNCHES,
+        launches_pairwise_l2=pl2.LAUNCHES,
+        s=f"{time.perf_counter() - t_phase:.2f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 20,000 windows build in 120-210 s on the H100 host; step 4 at lam=40
@@ -1895,6 +2384,19 @@ def main(argv=None) -> int:
     # with 2 % of its tokens redrawn), which the filter must drop
     ap.add_argument("--dedup-docs", type=int, default=72,
                     help="documents the phase-11 dedup filter reads")
+    # phase 12: qwen3-4b decodes --decode-steps tokens after prompts of
+    # --prompt-len; the deepseek-v2 cut half of each
+    ap.add_argument("--decode-batch", type=int, default=4,
+                    help="sequences of the phase-12 timed decode runs")
+    ap.add_argument("--prompt-len", type=int, default=1024,
+                    help="prompt tokens of the phase-12 qwen3-4b run "
+                         "(the deepseek-v2 cut takes half)")
+    ap.add_argument("--decode-steps", type=int, default=64,
+                    help="decode steps of the phase-12 qwen3-4b run (the "
+                         "deepseek-v2 cut takes half)")
+    ap.add_argument("--moe-layers", type=int, default=3,
+                    help="MoE layers of the timed deepseek-v2 cut (after "
+                         "its one dense layer)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1923,6 +2425,7 @@ def main(argv=None) -> int:
     max_err = phase_kernel_parity(torch, wf, rng, dev)
     l2_err = phase_l2_parity(torch, pl2, dev)
     phase_main_parity(torch, wf, rng, dev)
+    lev_launches = phase_lev_ids(torch, wf, dev)
     full = phase_full(torch, wf, dispatch, args, dev)
     emb = phase_embedding(torch, pl2, args, dev)
     t_fleet = time.perf_counter()
@@ -1935,6 +2438,7 @@ def main(argv=None) -> int:
     index_launches = phase_index(torch, wf, dispatch, args, dev)
     train = phase_train(torch, wf, dispatch, args, dev)
     log("index-train-phases", s=f"{time.perf_counter() - t_new:.2f}")
+    decode = phase_decode(torch, wf, pl2, args, dev)
     timing = phase_timing(torch, wf, build, rng, dev, full["sizes"])
     l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
@@ -1944,12 +2448,15 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/wavefront.cu",
         "replaces": "src/repro/kernels/wavefront.py:229",
         "launches": full["launches"] + fleet8["row"]["launches"]
-        + serve["launches"] + index_launches + train["launches"],
+        + serve["launches"] + index_launches + train["launches"]
+        + lev_launches,
         "launches_by_path": {"matching": full["launches"],
                              "fleet": fleet8["row"]["launches"],
                              "serve": serve["launches"],
                              "indexes": index_launches,
-                             "train_dedup": train["launches"]},
+                             "train_dedup": train["launches"],
+                             "lev_ids": lev_launches,
+                             "decode": decode["launches"]["wavefront"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1957,7 +2464,10 @@ def main(argv=None) -> int:
         "name": "pairwise_l2", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
         "replaces": "src/repro/kernels/pairwise_l2.py:47",
-        "launches": emb["launches"], **l2_err,
+        "launches": emb["launches"],
+        "launches_by_path": {"embedding": emb["launches"],
+                             "decode": decode["launches"]["pairwise_l2"]},
+        **l2_err,
         **l2_rows[0]}]
     log("total", s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}))

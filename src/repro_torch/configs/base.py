@@ -1,8 +1,9 @@
-"""Model configuration dataclass shared by every architecture.
+"""Model configuration dataclass shared by every architecture, and the
+input-shape cells.
 
-A copy of the reference's ``ModelConfig``: the port reads the same fields
-(the families it has not ported yet keep theirs, so a config names one
-model in both packages).
+A copy of the reference's ``ModelConfig`` and ``ShapeConfig``/``SHAPES``:
+the port reads the same fields (the families it has not ported yet keep
+theirs, so a config names one model in both packages).
 """
 
 from __future__ import annotations
@@ -146,3 +147,20 @@ class ModelConfig:
         total += nd * (attn + dense_mlp + 2 * d)
         total += (L - nd) * (attn + act_mlp + 2 * d)
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One of the assigned input-shape cells."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

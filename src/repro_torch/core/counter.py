@@ -47,6 +47,7 @@ from repro_torch.distances import bounds
 from repro_torch.distances import np_backend
 from repro_torch.kernels import dispatch as kernel_dispatch
 from repro_torch.kernels import registry as kernel_registry
+from repro_torch.kernels.wavefront import check_token_ids
 
 BACKENDS = ("numpy", "torch", "kernel")
 
@@ -128,9 +129,13 @@ class CountedDistance:
         #: the device the torch / kernel backends evaluate on (None: numpy)
         self.device = None if backend == "numpy" \
             else device_mod.resolve(device)
+        #: whether the kernel takes this distance's operands as token ids
+        #: (Levenshtein: int32, checked where they enter)
+        self._token_ids = backend == "kernel" \
+            and kernel_registry.takes_token_ids(dist.name)
         #: the window table on ``device`` (device backends only)
         self._data_t = None if self.device is None \
-            else torch.as_tensor(self.data).to(self.device)
+            else torch.as_tensor(self._table(self.data)).to(self.device)
         self._batch = _resolve_backend(dist, backend, self.device)
         self.count = 0       # exact evaluations (paper currency)
         self.dispatches = 0  # Python-level backend dispatches
@@ -144,6 +149,15 @@ class CountedDistance:
         #: masses) over ``data`` — cached for the plan's lifetime so the
         #: cascade never recomputes O(B*L) row norms per round
         self._env_cache: Optional[bounds.EnvelopeSet] = None
+
+    def _table(self, rows: np.ndarray) -> np.ndarray:
+        """Rows (windows or query rows) as the kernel takes them: token ids
+        as int32 (``ValueError`` for ids outside int32), anything else as
+        given."""
+        if not self._token_ids:
+            return rows
+        check_token_ids(rows)
+        return rows.astype(np.int32, copy=False)
 
     def reset(self) -> None:
         self.count = 0
@@ -164,12 +178,13 @@ class CountedDistance:
         rows = np.asarray(rows)
         if len(rows) == 0:
             return
+        table = self._table(rows)
         rows = rows.astype(self.data.dtype)
         self.data = np.concatenate([self.data, rows])
         self.n = len(self.data)
         if self._data_t is not None:
             self._data_t = torch.cat(
-                [self._data_t, torch.as_tensor(rows).to(self.device)])
+                [self._data_t, torch.as_tensor(table).to(self.device)])
         if self._env_cache is not None:  # incremental envelope refresh
             self._env_cache.extend(bounds.build_envelopes(rows))
 
@@ -198,7 +213,7 @@ class CountedDistance:
         idxs = np.asarray(idxs, np.int64)
         if idxs.size == 0:
             return np.zeros((0,), np.float32)
-        q = np.asarray(q)
+        q = self._table(np.asarray(q))
         qlen = len(q) if q_len is None else q_len
         qs = np.repeat(q[None, :qlen], idxs.size, 0)
         return self.eval_stacked(qs, idxs, qlen, bucket=bucket)
@@ -234,7 +249,7 @@ class CountedDistance:
         idxs = np.asarray(idxs, np.int64)
         if idxs.size == 0:
             return np.zeros((0,), np.float32)
-        qs = np.asarray(qs)
+        qs = self._table(np.asarray(qs))  # token ids: checked, int32, once
         L = self.data.shape[1]
         if q_len is None:
             lx = np.full(idxs.size, qs.shape[1], np.int64)

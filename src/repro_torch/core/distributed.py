@@ -55,6 +55,7 @@ from repro_torch.core.refnet import ReferenceNet
 from repro_torch.distances import bounds
 from repro_torch.distances import np_backend
 from repro_torch.kernels import registry as kernel_registry
+from repro_torch.kernels.wavefront import lev_operand
 
 
 @dataclasses.dataclass
@@ -88,15 +89,18 @@ class FlatNet:
         """The query operands on ``dev``, uploaded once per FlatNet version
         (``append``/``remove`` drop the copy): pivots, radii, member ids
         (padding clamped to 0) with their validity mask and distances, the
-        window database and, when present, the envelopes."""
+        window database and, when present, the envelopes.  Token ids go up
+        as the kernel takes them (int32, range-checked here), so no query
+        converts or checks them again."""
         if self._on_device is not None and self._on_device[0] == dev:
             return self._on_device[1]
-        arrs = {"pivots": torch.as_tensor(self.pivots),
+        rows = _operand_of(self.dist_name)
+        arrs = {"pivots": rows(self.pivots),
                 "pradius": torch.as_tensor(self.pivot_radius),
                 "members": torch.as_tensor(np.maximum(self.members, 0)),
                 "mem_valid": torch.as_tensor(self.members >= 0),
                 "mem_dist": torch.as_tensor(self.member_dist),
-                "data": torch.as_tensor(self.data)}
+                "data": rows(self.data)}
         if self.envelopes is not None:
             arrs["env_lo"] = torch.as_tensor(self.envelopes.lo)
             arrs["env_hi"] = torch.as_tensor(self.envelopes.hi)
@@ -171,6 +175,15 @@ class FlatNet:
         self.members = np.take_along_axis(masked, order, axis=1)
         self.member_dist = np.take_along_axis(self.member_dist, order, axis=1)
         return self
+
+
+def _operand_of(dist_name: str):
+    """Host rows -> host tensor as distance ``dist_name``'s kernel takes
+    them: int32 token ids (``ValueError`` outside int32), else as they
+    are."""
+    if kernel_registry.takes_token_ids(dist_name):
+        return lev_operand
+    return torch.as_tensor
 
 
 def flatten_net(net: ReferenceNet, pivot_level: Optional[int] = None
@@ -310,7 +323,7 @@ def device_range_query(flat: FlatNet, qs: np.ndarray, eps: float, *,
         and flat.envelopes is not None
     arrs = flat.device_arrays(dev)
     hits, n_need, n_evals, n_pruned, lb_rows, lb_pruned = _device_query(
-        device_mod.as_tensor(qs, dev),
+        _operand_of(flat.dist_name)(np.asarray(qs)).to(dev),
         device_mod.as_tensor(np.asarray(q_lens), dev, torch.int64),
         arrs, float(eps), flat.dist_name, use_env)
     stats = {"pivot_evals": Q * flat.n_pivots,

@@ -99,8 +99,8 @@ def dedup_corpus(corpus: np.ndarray, *, lam: int = 16, eps: float = 1.0,
     windows; a doc whose windows overwhelmingly hit is a near-duplicate.
 
     Distances run on ``device`` (default: the card) through the counter's
-    ``kernel`` backend, which carries Levenshtein tokens as f32: token ids
-    must lie in ``[0, 2**24)``, where every id is exact."""
+    ``kernel`` backend, which carries Levenshtein tokens as int32 ids: an id
+    outside int32 raises ``ValueError`` there."""
     from repro_torch.core.batch_engine import BatchEngine
     from repro_torch.core.counter import CountedDistance
     from repro_torch.core.refnet import ReferenceNet
@@ -108,10 +108,6 @@ def dedup_corpus(corpus: np.ndarray, *, lam: int = 16, eps: float = 1.0,
     from repro_torch.distances import get
 
     corpus = np.asarray(corpus)
-    if corpus.size and (corpus.min() < 0 or corpus.max() >= 1 << 24):
-        raise ValueError(
-            "token ids must lie in [0, 2**24) to be exact as f32; got "
-            f"[{corpus.min()}, {corpus.max()}]")
     dist = get("levenshtein")
     docs = corpus[:max_docs] if max_docs else corpus
     kept = []

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.kernels.wavefront import BIG, wavefront
+from repro_torch.kernels.wavefront import BIG, lev_operand, wavefront
 
 #: wavefront mode <-> distance-registry name
 MODE_OF_NAME = {"dtw": "dtw", "erp": "erp", "frechet": "dfd",
@@ -126,8 +126,11 @@ class KernelSpec:
         if B == 0:
             z = torch.zeros((0,), device=dev)
             return KernelOut(z, z.bool(), z.bool())
-        xs = device_mod.as_tensor(xs, dev)
-        ys = device_mod.as_tensor(ys, dev)
+        if self.mode == "lev":  # int32 ids, range-checked
+            xs, ys = lev_operand(xs, dev), lev_operand(ys, dev)
+        else:
+            xs = device_mod.as_tensor(xs, dev)
+            ys = device_mod.as_tensor(ys, dev)
         if eps is None:
             eps_t = torch.full((B,), float("inf"), device=dev)
         else:
@@ -223,11 +226,16 @@ class KernelSpec:
         """The operands go to :func:`~repro_torch.kernels.wavefront.wavefront`
         as the dispatch trimmed them: the kernel builds borders, gaps and
         costs on chip (the plain version first builds the reference's padded
-        layout).  Everything rides as f32, as in the reference: Levenshtein
-        tokens of any dtype ``(B, L)``, series ``(B, L, d)``."""
-        xs, ys = xs.to(torch.float32), ys.to(torch.float32)
-        if self.mode != "lev" and xs.ndim == 2:
-            xs, ys = xs[..., None], ys[..., None]
+        layout).  Series ride as f32 ``(B, L, d)``, as in the reference;
+        Levenshtein tokens ``(B, L)`` as int32 ids
+        (:func:`~repro_torch.kernels.wavefront.lev_operand`, applied by
+        :meth:`device_call`, a no-op on operands already int32), where the
+        reference casts them to f32 and rounds ids of ``2**24`` and above
+        together."""
+        if self.mode != "lev":
+            xs, ys = xs.to(torch.float32), ys.to(torch.float32)
+            if xs.ndim == 2:
+                xs, ys = xs[..., None], ys[..., None]
         dist, hit, pruned = wavefront(xs.contiguous(), ys.contiguous(), lens,
                                       eps_v, mode=self.mode)
         return KernelOut(dist, hit, pruned)
@@ -259,6 +267,13 @@ def get_envelope(name: str) -> KernelSpec:
     return get(f"lb:{name}")
 
 
+def takes_token_ids(name: str) -> bool:
+    """Whether distance ``name``'s kernel takes its operands as int32 token
+    ids (:func:`~repro_torch.kernels.wavefront.lev_operand`): tables that
+    feed it are converted, and range-checked, once where they are built."""
+    return name in _KERNELS and _KERNELS[name].mode == "lev"
+
+
 def get(name: str) -> KernelSpec:
     if name not in _KERNELS:
         raise KeyError(
@@ -271,7 +286,6 @@ def spec_for_mode(mode: str) -> KernelSpec:
     if mode not in NAME_OF_MODE:
         raise KeyError(f"unknown wavefront mode {mode!r}")
     return get(NAME_OF_MODE[mode])
-
 
 
 def names():

@@ -22,8 +22,10 @@ function:
   any two consecutive diagonals).  ``eps = +inf`` rows opt out.
 
 Operands are the dispatch's rows as they are, unpadded: ``xs`` ``(B, Lx)`` /
-``ys`` ``(B, Ly)`` f32 tokens for ``lev`` (as in the reference, tokens ride
-as exact small floats), else ``(B, Lx, d)`` / ``(B, Ly, d)`` f32 series;
+``ys`` ``(B, Ly)`` int32 token ids for ``lev`` (:func:`lev_operand`; the
+kernel and the plain version compare them as integers, so every id of int32
+is exact, where the reference's f32 cast rounds ids of ``2**24`` and above
+together), else ``(B, Lx, d)`` / ``(B, Ly, d)`` f32 series;
 ``lens`` ``(B, 2)`` int32 ``(len_x, len_y)``; ``eps`` ``(B,)`` f32.  Content
 past a row's own lengths is the dispatch's padding and enters the
 certificate exactly as in the reference.
@@ -43,6 +45,7 @@ import ctypes
 import threading
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.distances._wavefront import sum_last
@@ -60,6 +63,51 @@ LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+#: the token ids the Levenshtein mode takes: those of int32
+TOKEN_MIN, TOKEN_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def check_token_ids(a) -> None:
+    """Raise ``ValueError`` unless ``a`` (numpy array or tensor) holds
+    integer token ids inside int32 (floats must hold whole numbers).  On a
+    CUDA tensor of another dtype than int32 this waits for the card."""
+    if isinstance(a, torch.Tensor):
+        if a.numel() == 0 or a.dtype == torch.int32:
+            return
+        if a.is_floating_point() and not bool(
+                (torch.isfinite(a) & (a == torch.floor(a))).all()):
+            raise ValueError("Levenshtein token ids must be whole numbers")
+        lo, hi = float(a.min()), float(a.max())
+    else:
+        a = np.asarray(a)
+        if a.size == 0 or a.dtype == np.int32:
+            return
+        if a.dtype.kind not in "biuf":
+            raise ValueError(f"Levenshtein tokens of dtype {a.dtype}")
+        if a.dtype.kind == "f" and not np.all(np.isfinite(a)
+                                              & (a == np.floor(a))):
+            raise ValueError("Levenshtein token ids must be whole numbers")
+        lo, hi = a.min(), a.max()
+    if lo < TOKEN_MIN or hi > TOKEN_MAX:
+        raise ValueError(
+            f"Levenshtein token ids must lie in int32 [-2**31, 2**31); got "
+            f"[{lo}, {hi}]")
+
+
+def lev_operand(a, device=None) -> torch.Tensor:
+    """Levenshtein tokens (numpy array or tensor of any integer dtype, or
+    floats holding whole numbers, taken by value) as the wavefront takes
+    them: a contiguous int32 tensor on ``device`` (default: the tensor's
+    own).  Raises ``ValueError`` for ids outside int32
+    (:func:`check_token_ids`); the check is on the host for numpy input,
+    and int32 input passes through unchecked and uncopied."""
+    check_token_ids(a)
+    if isinstance(a, torch.Tensor):
+        t = a.to(device=device or a.device, dtype=torch.int32)
+    else:
+        t = torch.as_tensor(np.ascontiguousarray(a, np.int32)).to(device)
+    return t.contiguous()
 
 
 def wavefront(xs, ys, lens, eps, *, mode: str) -> Out:
@@ -86,9 +134,14 @@ def padded_layout(xs, ys, lens, mode: str):
     ``i`` holds ``x[i-1]``; y reversed and padded so diagonal ``k`` reads
     window start ``Lx+1+Ly-k``; ERP gap costs zeroed past each row's own
     length; ``BIG``-clamped border cumsums.  Returns ``(x_pad, y_rev_pad,
-    gap_x, gap_y_rev, border_col, border_row)`` and ``(Lx, Ly)``."""
-    xs = xs.to(torch.float32)  # lev tokens ride as exact small floats
-    ys = ys.to(torch.float32)
+    gap_x, gap_y_rev, border_col, border_row)`` and ``(Lx, Ly)``; for
+    ``lev`` the pads are the int32 ids, zeros as padding."""
+    if mode == "lev":
+        if xs.dtype != torch.int32 or ys.dtype != torch.int32:
+            raise ValueError(f"lev tokens must be int32 ids "
+                             f"(lev_operand); got {xs.dtype}/{ys.dtype}")
+    else:
+        xs, ys = xs.to(torch.float32), ys.to(torch.float32)
     if xs.ndim == 2:
         xs, ys = xs[..., None], ys[..., None]
     B, Lx, d = xs.shape
@@ -96,9 +149,9 @@ def padded_layout(xs, ys, lens, mode: str):
     dev = xs.device
     lx, ly = lens[:, 0].to(torch.int64), lens[:, 1].to(torch.int64)
     Ypad = 2 * Lx + Ly + 1
-    x_pad = torch.zeros((B, Lx + 1, d), device=dev)
+    x_pad = torch.zeros((B, Lx + 1, d), dtype=xs.dtype, device=dev)
     x_pad[:, 1:] = xs
-    y_rev_pad = torch.zeros((B, Ypad, d), device=dev)
+    y_rev_pad = torch.zeros((B, Ypad, d), dtype=xs.dtype, device=dev)
     y_rev_pad[:, Lx + 1:Lx + 1 + Ly] = ys.flip(1)
     gap_x = torch.zeros((B, Lx + 1), device=dev)
     gap_y_rev = torch.zeros((B, Ypad), device=dev)
@@ -144,8 +197,8 @@ def wavefront_torch(xs, ys, lens, eps, *, mode: str) -> Out:
     loop of the reference's ``_make_step`` in f32 torch ops, vectorised over
     rows and cells.
 
-    Same operands as the kernel (any integer or float dtype is taken);
-    runs on any device.  Returns ``dist`` (``BIG`` where the row misses),
+    Same operands as the kernel (``lev`` tokens int32 only, as
+    :func:`lev_operand` gives them); runs on any device.  Returns ``dist`` (``BIG`` where the row misses),
     ``hit`` and ``pruned`` as ``(B,)`` tensors."""
     (x_pad, y_rev_pad, gap_x, gap_y_rev, border_col, border_row), (Lx, Ly) \
         = padded_layout(xs, ys, lens, mode)
@@ -163,11 +216,8 @@ def wavefront_torch(xs, ys, lens, eps, *, mode: str) -> Out:
     for k in range(1, Lx + Ly + 1):
         s = Lx + 1 + Ly - k  # start of diagonal k's window in reversed y
         ysl = y_rev_pad[:, s:s + W]
-        if mode == "lev":
-            acc = (x_pad[..., 0] - ysl[..., 0]).abs()
-            for t in range(1, d):
-                acc = acc + (x_pad[..., t] - ysl[..., t]).abs()
-            c = (acc > 0).to(torch.float32)
+        if mode == "lev":  # int32 ids, compared as integers
+            c = (x_pad[..., 0] != ysl[..., 0]).to(torch.float32)
         else:
             diff = x_pad[..., 0] - ysl[..., 0]
             acc = diff * diff
@@ -230,7 +280,8 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
 def wavefront_cuda(xs, ys, lens, eps, *, mode: str) -> Out:
     """Launch the CUDA kernel on the current stream (asynchronous).
 
-    ``xs``/``ys`` are ``(B, Lx)``/``(B, Ly)`` f32 tokens for ``lev``, else
+    ``xs``/``ys`` are ``(B, Lx)``/``(B, Ly)`` int32 token ids for ``lev``
+    (:func:`lev_operand`), else
     ``(B, Lx, d)``/``(B, Ly, d)`` f32; ``lens`` ``(B, 2)`` int32; ``eps``
     ``(B,)`` f32.  Checks device, dtype, shape and contiguity of every
     operand and raises on anything the kernel does not take; raises if the
@@ -256,8 +307,9 @@ def wavefront_cuda(xs, ys, lens, eps, *, mode: str) -> Out:
         yshape = (B, Ly, d)
     if Lx < 1 or Ly < 1 or B < 1 or d < 1:
         raise ValueError(f"bad dispatch shape B={B} Lx={Lx} Ly={Ly} d={d}")
-    _check("xs", xs, tuple(xs.shape), torch.float32, dev)
-    _check("ys", ys, yshape, torch.float32, dev)
+    operand = torch.int32 if mode == "lev" else torch.float32
+    _check("xs", xs, tuple(xs.shape), operand, dev)
+    _check("ys", ys, yshape, operand, dev)
     _check("lens", lens, (B, 2), torch.int32, dev)
     _check("eps", eps, (B,), torch.float32, dev)
     dist = torch.empty(B, dtype=torch.float32, device=dev)

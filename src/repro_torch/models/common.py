@@ -58,21 +58,53 @@ def head_mask(cfg, tp: int, dtype=torch.bfloat16, device=None):
     return (torch.arange(He, device=device) < cfg.n_heads).to(dtype)
 
 
+def _stack(ys: list):
+    """Per-layer outputs stacked on a new leading (layers) axis: a tuple of
+    stacks for tuple outputs, None when the blocks output nothing."""
+    if not ys or ys[0] is None:
+        return None
+    if isinstance(ys[0], tuple):
+        return tuple(torch.stack(c) for c in zip(*ys))
+    return torch.stack(ys)
+
+
 def scan_blocks(block_fn: Callable, h: torch.Tensor, blocks, *,
-                remat: bool = False) -> torch.Tensor:
-    """Apply ``block_fn(h, block)`` for each block in order (the
-    reference's ``lax.scan`` over layer-stacked parameters).
+                remat: bool = False, carry_extra=None):
+    """Apply ``block_fn((h, extra), block) -> ((h, extra), ys)`` for each
+    block in order (the reference's ``lax.scan`` over layer-stacked
+    parameters); returns ``(h, extra, ys)``, with ``ys`` the blocks'
+    per-layer outputs stacked along a leading layers axis (the prefill
+    caches; None when the blocks output None).  ``carry_extra`` is carried
+    from block to block (the MoE aux loss).
 
     ``remat``: while gradients are recorded, each block saves only its
     input and recomputes its activations in the backward pass (the
     reference's ``jax.checkpoint`` with ``nothing_saveable``)."""
     remat = remat and torch.is_grad_enabled()
+    carry = (h, carry_extra)
+    ys = []
     for blk in blocks:
         if remat:
-            h = checkpoint(block_fn, h, blk, use_reentrant=False)
+            carry, y = checkpoint(block_fn, carry, blk, use_reentrant=False)
         else:
-            h = block_fn(h, blk)
-    return h
+            carry, y = block_fn(carry, blk)
+        ys.append(y)
+    return carry[0], carry[1], _stack(ys)
+
+
+def grow_cache(cache: dict, length: int) -> dict:
+    """A prefill cache with room to decode: every layer-stacked entry
+    (``(L, B, S, ...)``) zero-padded along its length axis to ``length``;
+    ``pos`` and absent entries unchanged.  (The reference pads its caches
+    the same way before decoding, ``tests/test_models_smoke.py``.)"""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, torch.Tensor) and v.ndim >= 3:
+            pad = v.new_zeros(v.shape[:2] + (length - v.shape[2],)
+                              + v.shape[3:])
+            v = torch.cat([v, pad], dim=2)
+        out[k] = v
+    return out
 
 
 def stack_layer_defs(defs: dict, n_layers: int) -> dict:

@@ -9,10 +9,20 @@ would round otherwise.  Two schedules:
 
 * :func:`attn_full`    — materialised scores (sequences up to 2048);
 * :func:`attn_chunked` — blockwise online softmax over q and kv blocks, so a
-  long sequence never materialises an ``S x S`` score tensor.
+  long sequence never materialises an ``S x S`` score tensor;
+* :func:`attn_decode`  — one new token against the OLD decode cache plus an
+  explicit self-token term (the cache is written once per step, after the
+  layers, by :func:`update_cache`).
 
-The reference's sharding context (``Ctx``) has no counterpart on one card.
-MoE, SSD, convolution and decode-cache helpers come with their models.
+The MoE layer is the reference's token-choice top-k router
+(:func:`moe_router`), capacity dispatch (:func:`moe_dispatch`,
+:func:`moe_expert_compute`) and routed plus shared experts
+(:func:`moe_block`), with every expert on the one card.
+
+The reference's sharding context (``Ctx``) and its ``shard_map`` branches
+(the sharded cache write, expert parallelism) have no counterpart on one
+card: the port runs the reference's no-mesh branch.  SSD and convolution
+helpers come with their models.
 """
 
 from __future__ import annotations
@@ -137,3 +147,178 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = acc / torch.clamp_min(lsum[..., None], 1e-30)
         outs.append(out.transpose(1, 2))  # (B, qc, H, dv)
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decoding
+# ---------------------------------------------------------------------------
+
+def update_cache(cache: torch.Tensor, new: torch.Tensor, pos,
+                 seq_axis: int = 1) -> torch.Tensor:
+    """Write one decode step into ``cache`` at position ``pos`` along
+    ``seq_axis``, in place, and return it (the reference's
+    ``dynamic_update_slice`` on a donated, aliased buffer).  Called once per
+    step on the layer-stacked cache.  ``new`` has length 1 on that axis;
+    ``pos`` is an int or a 0-d tensor on the cache's device (no wait for the
+    card) and must lie inside the cache."""
+    idx = torch.as_tensor(pos, device=cache.device).reshape(1).to(
+        torch.int64)
+    return cache.index_copy_(seq_axis, idx, new.to(cache.dtype))
+
+
+def softmax_with_self(s: torch.Tensor, s_self: torch.Tensor):
+    """The softmax weights of the cached scores ``s`` and the self-token's
+    ``s_self`` (last axis), normalised together without a concatenation."""
+    m = torch.maximum(s.amax(dim=-1, keepdim=True),
+                      s_self.amax(dim=-1, keepdim=True))
+    p_c = torch.exp(s - m)
+    p_s = torch.exp(s_self - m)
+    denom = p_c.sum(dim=-1, keepdim=True) + p_s.sum(dim=-1, keepdim=True)
+    return p_c / denom, p_s / denom
+
+
+def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                pos, k_new: Optional[torch.Tensor] = None,
+                v_new: Optional[torch.Tensor] = None,
+                group_size: Optional[int] = None) -> torch.Tensor:
+    """One-step attention: q ``(B,1,H,dh)`` against the OLD cache
+    ``(B,S,Hkv,dh)`` plus the new token's own k/v ``(B,1,Hkv,dh)`` as an
+    explicit extra term; cache entries at positions ``>= pos`` (the new
+    token's position) are masked.
+
+    With ``group_size`` and ``H == Hkv * group_size`` the grouped form
+    contracts each query group against its kv head and never expands the
+    cache; otherwise the kv heads are expanded to the query heads.  Scores
+    and softmax in f32, products in the operands' dtype."""
+    B, _, H, dh = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    if group_size and H == Hkv * group_size:
+        qg = q.reshape(B, 1, Hkv, group_size, dh)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).to(
+            torch.float32) * scale
+        mask = torch.arange(S, device=q.device) < pos
+        s = torch.where(mask, s, -1e30)
+        if k_new is not None:
+            s_self = torch.einsum("bqkgd,bskd->bkgqs", qg, k_new).to(
+                torch.float32) * scale
+            w_c, w_s = softmax_with_self(s, s_self)
+            out = torch.einsum("bkgqs,bskd->bqkgd", w_c.to(v_cache.dtype),
+                               v_cache)
+            out = out + torch.einsum("bkgqs,bskd->bqkgd",
+                                     w_s.to(v_new.dtype), v_new)
+            return out.reshape(B, 1, H, dh)
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v_cache.dtype), v_cache)
+        return out.reshape(B, 1, H, dh)
+    k = _expand_kv(k_cache, H, group_size)
+    v = _expand_kv(v_cache, H, group_size)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    mask = torch.arange(S, device=q.device) < pos
+    scores = torch.where(mask, scores, -1e30)
+    if k_new is not None:
+        kn = _expand_kv(k_new, H, group_size)
+        vn = _expand_kv(v_new, H, group_size)
+        s_self = torch.einsum("bqhd,bkhd->bhqk", q, kn).to(
+            torch.float32) * scale
+        w_c, w_s = softmax_with_self(scores, s_self)
+        out = torch.einsum("bhqk,bkhd->bqhd", w_c.to(v.dtype), v)
+        return out + torch.einsum("bhqk,bkhd->bqhd", w_s.to(vn.dtype), vn)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# MoE: token-choice top-k, capacity dispatch, routed + shared experts
+# ---------------------------------------------------------------------------
+
+def moe_router(x: torch.Tensor, wr: torch.Tensor, top_k: int):
+    """x ``(T, d)``, router weight ``wr`` ``(E, d)`` (``nn.Linear``'s
+    layout of the reference's ``(d, E)``) -> ``(gates (T, k), idx (T, k),
+    aux)``: softmax over the experts in f32, the top k, gates renormalised
+    to sum 1, and the Switch load-balancing loss ``E * sum(me * ce)`` (mean
+    router probability times the share of assignments, per expert)."""
+    logits = F.linear(x, wr).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+    E = wr.shape[0]
+    me = probs.mean(dim=0)
+    ce = torch.bincount(idx.reshape(-1), minlength=E).to(
+        torch.float32) / idx.numel()
+    aux = E * torch.sum(me * ce)
+    return gates.to(x.dtype), idx, aux
+
+
+def moe_dispatch(gates: torch.Tensor, idx: torch.Tensor, n_experts: int,
+                 capacity: int):
+    """The capacity dispatch buffers ``(buf_t, buf_g)``, each
+    ``(n_experts, capacity)``: slot ``(e, c)`` holds token index + 1 (0:
+    empty) and its gate.
+
+    An assignment's rank within its expert is its place in the cumulative
+    count over the ``T * k`` flattened assignments, token-major; ranks at or
+    past ``capacity`` are dropped, exactly the reference's tokens."""
+    T, k = idx.shape
+    dev = idx.device
+    flat_e = idx.reshape(-1)
+    flat_g = gates.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
+    onehot = F.one_hot(flat_e, n_experts)
+    rank = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=1)
+    keep = rank < capacity
+    slot_r = torch.where(keep, rank, capacity)  # dropped: the dump column
+    buf_t = torch.zeros((n_experts, capacity + 1), dtype=torch.int64,
+                        device=dev)
+    buf_t[flat_e, slot_r] = torch.where(keep, flat_t + 1, 0)
+    buf_g = torch.zeros((n_experts, capacity + 1), dtype=flat_g.dtype,
+                        device=dev)
+    buf_g[flat_e, slot_r] = torch.where(keep, flat_g, 0.0)
+    return buf_t[:, :capacity], buf_g[:, :capacity]
+
+
+def moe_expert_compute(x_flat: torch.Tensor, gates: torch.Tensor,
+                       idx: torch.Tensor, w_gate: torch.Tensor,
+                       w_up: torch.Tensor, w_down: torch.Tensor, *,
+                       capacity: int) -> torch.Tensor:
+    """Capacity dispatch over the experts ``w_*`` (``(E, d, f)``,
+    ``(E, d, f)``, ``(E, f, d)``, the reference's layout): each expert runs
+    SwiGLU on its ``capacity`` slots (empty slots are zero rows), outputs
+    are scaled by their gates and summed back per token.  x_flat ``(T, d)``,
+    idx ``(T, k)`` expert ids; returns ``(T, d)``.  Every expert's weights
+    are read whatever the batch (the dispatch is dense over experts)."""
+    T, d = x_flat.shape
+    buf_t, buf_g = moe_dispatch(gates, idx, w_gate.shape[0], capacity)
+    occupied = buf_t > 0
+    xg = x_flat[torch.clamp_min(buf_t - 1, 0)]           # (E, C, d)
+    xg = xg * occupied[..., None].to(xg.dtype)
+    g = torch.bmm(xg, w_gate)
+    u = torch.bmm(xg, w_up)
+    h = F.silu(g.to(torch.float32)).to(xg.dtype) * u
+    y = torch.bmm(h, w_down)
+    y = y * buf_g[..., None].to(y.dtype)
+    out = torch.zeros((T + 1, d), dtype=y.dtype, device=y.device)
+    out.index_add_(0, buf_t.reshape(-1), y.reshape(-1, d))
+    return out[1:]
+
+
+def moe_block(p, x: torch.Tensor, cfg):
+    """The MoE layer on x ``(B, S, d)``: routed experts over all ``B * S``
+    tokens with ``capacity = max(8, int(T * k * capacity_factor) // E)``,
+    plus the shared experts as one dense SwiGLU.  ``p`` holds ``router``
+    (``nn.Linear``), ``w_gate``/``w_up``/``w_down`` (expert stacks) and, with
+    ``cfg.n_shared_experts``, ``shared`` (``wg``/``wu``/``wd``).  Returns
+    ``(out, aux)``."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    xf = x.reshape(T, d)
+    gates, idx, aux = moe_router(xf, p.router.weight, k)
+    cap = max(8, int(T * k * cfg.capacity_factor) // E)
+    out = moe_expert_compute(xf, gates, idx, p.w_gate, p.w_up, p.w_down,
+                             capacity=cap)
+    out = out.reshape(x.shape)
+    if cfg.n_shared_experts:
+        sh = p.shared
+        out = out + gated_mlp(x, sh.wg.weight, sh.wu.weight, sh.wd.weight)
+    return out, aux

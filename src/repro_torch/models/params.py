@@ -4,23 +4,28 @@ reference's parameter trees.
 Models declare their parameters once as a tree (nested dicts) of
 :class:`ParamDef`, in the reference's layout: projection weights as
 ``(in, out)`` with heads split out (``wq (d, H, hd)``, ``wo (H, hd, d)``),
-and a leading ``layers`` axis on every block parameter
-(``common.stack_layer_defs``).  From that tree
+and a leading layers axis on every block parameter of a layer stack
+(``common.stack_layer_defs``; the stacks are :data:`STACKS`: ``layers`` of
+the dense transformer, ``dense_layers`` and ``moe_layers`` of the MoE
+model).  From that tree
 
 * :func:`init_params` materialises tensors in that layout, from an explicit
   ``torch.Generator`` (the fan-in rule of the reference);
+* :func:`abstract_params` gives ``meta``-device tensors of the same shapes,
+  which allocate nothing (the reference's ``ShapeDtypeStruct`` tree);
 * :func:`params_from_jax` turns such a tree, as numpy arrays or tensors,
-  into the ``state_dict`` of the port's ``nn.Module``: the layers axis split
-  into one block per layer, and projection weights in ``nn.Linear``'s
-  ``(out, in)`` layout;
+  into the ``state_dict`` of the port's ``nn.Module``: each stack's layers
+  axis split into one block per layer, projection weights in
+  ``nn.Linear``'s ``(out, in)`` layout, and the MoE expert stacks
+  (``w_gate``, ``w_up``, ``w_down``, ``(E, in, out)``) kept as stacked
+  tensors in the reference's layout;
 * :func:`params_to_jax` is its inverse;
 * :func:`port_leaves` maps each of the tree's leaves to the port's tensors
   (the reference's leaf order, which the optimizer keeps), and
   :func:`decay_mask` reads AdamW's weight-decay rule off the tree's shapes.
 
-The reference's sharding-only helpers (``abstract_params`` and the logical
-axes' partition specs) have no counterpart on one card; the axes are kept as
-documentation of each dimension.
+The reference's logical axes' partition specs have no counterpart on one
+card; the axes are kept as documentation of each dimension.
 """
 
 from __future__ import annotations
@@ -86,14 +91,30 @@ def init_params(defs, generator: Optional[torch.Generator] = None,
     return out
 
 
+def abstract_params(defs, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """``meta``-device tensors of every :class:`ParamDef`'s shape (same
+    tree): shapes and dtypes for sizing a model, no memory allocated."""
+    out: dict = {}
+    for path, d in _leaves(defs):
+        _set(out, path, torch.empty(d.shape, dtype=dtype, device="meta"))
+    return out
+
+
 def param_count(defs) -> int:
     return sum(math.prod(d.shape) for _, d in _leaves(defs))
 
 
+#: top-level keys of the layer stacks: their leaves carry a leading layers
+#: axis, split into one block module per layer
+STACKS = ("layers", "dense_layers", "moe_layers")
+
 #: projection weights of the reference's layout -> ``nn.Linear`` weights:
 #: the number of leading input axes (flattened), the rest are outputs
+#: (``wo`` takes heads and head width in; MLA's ``wuk``/``wuv``/``wuq`` take
+#: a latent in and give heads out)
 _LINEAR_IN_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "wg": 1, "wu": 1,
-                   "wd": 1, "out": 1}
+                   "wd": 1, "out": 1, "wdq": 1, "wuq": 1, "wdkv": 1,
+                   "wkr": 1, "wuk": 1, "wuv": 1, "router": 1}
 #: per-head biases -> the bias of their projection
 _BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv"}
 
@@ -115,15 +136,28 @@ def _to_port(leaf: str, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _names(path: tuple, n_layers: int = 0):
+    """The port names of the tree leaf at ``path``: one per layer of a
+    stack (``n_layers`` of them), else one."""
+    tail = path[1:-1] + (_port_name(path[-1]),)
+    if path[0] in STACKS:
+        return [".".join((path[0], str(i)) + tail) for i in range(n_layers)]
+    return [".".join(path[:-1] + (_port_name(path[-1]),))]
+
+
 def params_from_jax(tree, *, dtype: Optional[torch.dtype] = None,
                     device=None) -> Dict[str, torch.Tensor]:
     """The reference's parameter tree -> the port's ``state_dict``.
 
     ``tree`` holds numpy arrays (``np.asarray`` of the JAX leaves) or
-    tensors; ``tree["layers"]`` is layer-stacked.  Leaf ``layers/wq`` of
+    tensors; the :data:`STACKS` are layer-stacked.  Leaf ``layers/wq`` of
     layer ``i`` becomes ``layers.{i}.wq.weight`` as ``(H*hd, d)``,
-    ``layers/bq`` becomes ``layers.{i}.wq.bias``, top-level ``tok`` becomes
-    ``tok.weight``.  Values are cast to ``dtype`` if given."""
+    ``layers/bq`` becomes ``layers.{i}.wq.bias``,
+    ``moe_layers/shared/wg`` becomes ``moe_layers.{i}.shared.wg.weight``,
+    ``moe_layers/w_gate`` stays ``(E, d, f)`` as ``moe_layers.{i}.w_gate``,
+    top-level ``tok`` becomes ``tok.weight``.  Values are cast to ``dtype``
+    if given; a leaf of a stack that needs no new layout is handed over as a
+    view of the stacked tensor (no copy on the same device and dtype)."""
     state: Dict[str, torch.Tensor] = {}
     for path, a in _leaves(tree):
         if isinstance(a, np.ndarray) and a.dtype.kind == "V":
@@ -135,12 +169,11 @@ def params_from_jax(tree, *, dtype: Optional[torch.dtype] = None,
         if dtype is not None:
             t = t.to(dtype)
         leaf = path[-1]
-        if path[0] == "layers":
-            for i in range(t.shape[0]):
-                state[f"layers.{i}.{_port_name(leaf)}"] = _to_port(leaf, t[i])
+        if path[0] in STACKS:
+            for i, name in enumerate(_names(path, t.shape[0])):
+                state[name] = _to_port(leaf, t[i])
         else:
-            state[".".join(path[:-1] + (_port_name(leaf),))] = \
-                _to_port(leaf, t)
+            state[_names(path)[0]] = _to_port(leaf, t)
     return state
 
 
@@ -149,13 +182,7 @@ def port_leaves(defs):
     reference's leaf order (``jax.tree.flatten``); a layer-stacked leaf
     names one port tensor per layer, in layer order."""
     for path, d in _leaves(defs):
-        leaf = path[-1]
-        if path[0] == "layers":
-            names = [f"layers.{i}.{_port_name(leaf)}"
-                     for i in range(d.shape[0])]
-        else:
-            names = [".".join(path[:-1] + (_port_name(leaf),))]
-        yield path, d, names
+        yield path, d, _names(path, d.shape[0] if path[0] in STACKS else 0)
 
 
 def decay_mask(defs) -> Dict[str, bool]:
@@ -164,8 +191,9 @@ def decay_mask(defs) -> Dict[str, bool]:
 
     The reference decays every leaf of its tree with ``ndim >= 2``
     (``train/optimizer.py``), and its tree stacks the layers, so every
-    per-layer leaf is decayed, norms and QKV biases included, and of the
-    top-level leaves all but ``final_norm``.  The rule is read from the
+    per-layer leaf is decayed (norms, QKV biases, routers, expert stacks and
+    the shared experts included), and of the top-level leaves all but
+    ``final_norm``.  The rule is read from the
     reference's shapes (``defs``), never from the port tensor's ``ndim``:
     a port block's norm is 1-D, its stacked counterpart 2-D."""
     return {n: len(d.shape) >= 2
@@ -179,7 +207,7 @@ def params_to_jax(state: Dict[str, torch.Tensor], defs) -> dict:
     out: dict = {}
     for path, d, names in port_leaves(defs):
         leaf = path[-1]
-        stacked = path[0] == "layers"
+        stacked = path[0] in STACKS
         shape = d.shape[1:] if stacked else d.shape
         back = [(state[n].T if leaf in _LINEAR_IN_AXES else state[n]
                  ).reshape(shape) for n in names]

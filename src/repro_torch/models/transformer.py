@@ -1,8 +1,11 @@
 """Dense decoder-only transformer (llama/qwen family) as an ``nn.Module``.
 
-Covers the dense configs of the reference (qk_norm, QKV bias, GQA); the
-port runs smollm-360m.  One :class:`Block` module per layer holds that
-layer's parameters under the reference's names (``ln1``, ``wq``, ...), with
+Covers the dense configs of the reference: qwen3-4b (qk_norm), qwen2-72b
+and qwen2.5-32b (QKV bias), smollm-360m, and the backbones of
+musicgen-large and internvl2-76b, whose frontends are stubs (precomputed
+frame or patch embeddings, ``batch["embeds"]``, are prepended to the token
+embeddings).  One :class:`Block` module per layer holds that layer's
+parameters under the reference's names (``ln1``, ``wq``, ...), with
 projections as ``nn.Linear`` (``models/params.py`` converts the layouts).
 
 Build a model with :func:`build` from a parameter tree in the reference's
@@ -12,8 +15,16 @@ arrays.  :func:`forward` has the reference's signature; with
 ``return_hidden=True`` it returns the hidden states before the final norm.
 Training calls the module itself under autograd (``train/train_state.py``);
 with ``cfg.remat == "block"`` each block is recomputed in the backward pass.
-Prefill caches and decoding (``return_cache``, ``cache_defs``,
-``decode_step``) come with the serving slice.
+
+Decoding keeps the reference's convention: ``forward(..., return_cache=True)``
+over S tokens returns the logits and ``{"k", "v", "pos"}`` with the
+layer-stacked roped keys and values ``(L, B, S, Hkv, hd)`` and ``pos = S - 1``;
+:func:`decode_step` puts the next token at ``pos + 1``, attends the old cache
+below it plus the token itself (``layers.attn_decode``, grouped: the cache
+is never expanded to the query heads), and writes the new keys and values
+into the cache once, after the layers (``layers.update_cache``, in place).
+The cache must have room: :func:`~repro_torch.models.common.grow_cache`, or
+zeros of :func:`cache_defs`' shapes.
 """
 
 from __future__ import annotations
@@ -23,8 +34,9 @@ from torch import nn
 
 from repro_torch import device as device_mod
 from repro_torch.models import common
-from repro_torch.models.layers import (apply_rope, attn_chunked, attn_full,
-                                       gated_mlp, rms_norm, rope_tables)
+from repro_torch.models.layers import (apply_rope, attn_chunked, attn_decode,
+                                       attn_full, gated_mlp, rms_norm,
+                                       rope_tables, update_cache)
 from repro_torch.models.params import ParamDef, params_from_jax
 
 #: longest sequence attended with materialised scores (the reference's
@@ -105,10 +117,17 @@ def _attn_out(p: Block, o: torch.Tensor) -> torch.Tensor:
     return p.wo(o.flatten(2))
 
 
-def _block(cfg, cos, sin, use_full_attn: bool):
-    g = max(cfg.n_heads // cfg.n_kv_heads, 1)
+def _group(cfg) -> int:
+    return max(cfg.n_heads // cfg.n_kv_heads, 1)
 
-    def fn(h: torch.Tensor, p: Block) -> torch.Tensor:
+
+def _block(cfg, cos, sin, use_full_attn: bool, want_cache: bool = False):
+    """The layer function of :func:`common.scan_blocks`; with
+    ``want_cache`` it also outputs the layer's keys and values."""
+    g = _group(cfg)
+
+    def fn(carry, p: Block):
+        h, extra = carry
         x = rms_norm(h, p.ln1)
         q, k, v = _qkv(p, x, cfg, cos, sin)
         if use_full_attn:
@@ -118,7 +137,8 @@ def _block(cfg, cos, sin, use_full_attn: bool):
                              kv_chunk=cfg.attn_chunk, group_size=g)
         h = h + _attn_out(p, o)
         x = rms_norm(h, p.ln2)
-        return h + gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight)
+        h = h + gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight)
+        return (h, extra), ((k, v) if want_cache else None)
     return fn
 
 
@@ -134,18 +154,51 @@ class Transformer(nn.Module):
         self.final_norm = nn.Parameter(torch.empty(d))
         self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
 
-    def forward(self, batch: dict, return_hidden: bool = False):
+    def forward(self, batch: dict, return_hidden: bool = False,
+                return_cache: bool = False):
         cfg = self.cfg
         h = common.embed_tokens(self, batch["tokens"])
         h = common.maybe_prepend_embeds(h, batch)
         S = h.shape[1]
         pos = torch.arange(S, device=h.device)
         cos, sin = rope_tables(pos[None, :], cfg.head_dim, cfg.rope_theta)
-        h = common.scan_blocks(_block(cfg, cos, sin, S <= FULL_ATTN_MAX), h,
-                               self.layers, remat=(cfg.remat == "block"))
+        blk = _block(cfg, cos, sin, S <= FULL_ATTN_MAX, return_cache)
+        h, _, kv = common.scan_blocks(
+            blk, h, self.layers,
+            remat=(cfg.remat == "block") and not return_cache)
         if return_hidden:
             return h
-        return common.unembed(self, h)
+        logits = common.unembed(self, h)
+        if not return_cache:
+            return logits
+        return logits, {"k": kv[0], "v": kv[1],
+                        "pos": torch.full((), S - 1, dtype=torch.int32,
+                                          device=h.device)}
+
+    def decode(self, cache: dict, tokens: torch.Tensor):
+        cfg = self.cfg
+        B = tokens.shape[0]
+        h = common.embed_tokens(self, tokens)
+        pos = cache["pos"] + 1                   # position of the new token
+        cos, sin = rope_tables(pos.expand(B, 1), cfg.head_dim,
+                               cfg.rope_theta)
+        g = _group(cfg)
+        ks, vs = [], []
+        for i, p in enumerate(self.layers):
+            x = rms_norm(h, p.ln1)
+            q, k, v = _qkv(p, x, cfg, cos, sin)
+            # the OLD cache plus an explicit self-token term; the cache is
+            # written once, after the layers
+            o = attn_decode(q, cache["k"][i], cache["v"][i], pos, k_new=k,
+                            v_new=v, group_size=g)
+            h = h + _attn_out(p, o)
+            x = rms_norm(h, p.ln2)
+            h = h + gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight)
+            ks.append(k)
+            vs.append(v)
+        kc = update_cache(cache["k"], torch.stack(ks), pos, seq_axis=2)
+        vc = update_cache(cache["v"], torch.stack(vs), pos, seq_axis=2)
+        return common.unembed(self, h), {"k": kc, "v": vc, "pos": pos}
 
 
 def build(cfg, params, *, dtype=None, device=None) -> Transformer:
@@ -160,17 +213,48 @@ def build(cfg, params, *, dtype=None, device=None) -> Transformer:
     return model.requires_grad_(False).eval()
 
 
+def _check(params, cfg) -> None:
+    if params.cfg != cfg:
+        raise ValueError(f"the model was built for {params.cfg.name!r}, "
+                         f"not {cfg.name!r}")
+
+
 def forward(params: Transformer, batch: dict, cfg,
-            return_hidden: bool = False):
+            return_cache: bool = False, return_hidden: bool = False):
     """The reference's ``forward(params, batch, cfg)``: logits (B, S, V), or
-    the hidden states (B, S, d) before the final norm.
+    the hidden states (B, S, d) before the final norm, or with
+    ``return_cache`` the logits and the prefill cache (``k``, ``v``,
+    ``pos``).
 
     A network built by :func:`build` runs in inference mode; one whose
     parameters require gradients (the trainer's) is differentiated through
     while autograd is enabled."""
-    if params.cfg != cfg:
-        raise ValueError(f"the model was built for {params.cfg.name!r}, "
-                         f"not {cfg.name!r}")
+    _check(params, cfg)
     trains = torch.is_grad_enabled() and params.out.weight.requires_grad
     with torch.inference_mode(not trains):
-        return params(batch, return_hidden=return_hidden)
+        return params(batch, return_hidden=return_hidden,
+                      return_cache=return_cache)
+
+
+def cache_defs(cfg, B: int, S: int) -> dict:
+    """Shapes of a decode cache for ``B`` sequences of up to ``S`` tokens
+    (the reference's)."""
+    hd, Hkv, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
+    return {
+        "k": ParamDef((L, B, S, Hkv, hd),
+                      ("layers", "batch", "kv_seq", None, None),
+                      init="zeros"),
+        "v": ParamDef((L, B, S, Hkv, hd),
+                      ("layers", "batch", "kv_seq", None, None),
+                      init="zeros"),
+        "pos": ParamDef((), (), init="zeros"),
+    }
+
+
+def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor, cfg):
+    """One decode step: ``tokens`` (B, 1) at position ``cache["pos"] + 1``
+    -> ``(logits (B, 1, V), cache)``; the cache's ``k``/``v`` are updated in
+    place and returned with the new ``pos``."""
+    _check(params, cfg)
+    with torch.inference_mode():
+        return params.decode(cache, tokens)

@@ -134,3 +134,42 @@ def test_counter_envelope_tier_on_refnet_matches_reference():
     assert port.counter.lb_tier_rows == refr._engine.counter.lb_tier_rows
     assert port.counter.lb_tier_pruned == \
         refr._engine.counter.lb_tier_pruned
+
+
+@pytest.mark.parametrize("name", ["dtw", "erp"])
+def test_eps_exactly_at_an_envelope_bound_keeps_the_host_hits(name):
+    """ε set exactly at envelope bounds of the TRAJ cells, the reference's
+    bound values and the port's own (which differ by up to ~1e-5 of the
+    bound): a row whose bound lies at ε is pruned on neither side
+    (``lb > eps`` prunes), so the envelope tier's hits equal the host's
+    (the numpy backend, no bound) and the reference's envelope tier's."""
+    data = synthetic.trajectories(160, seed=0)
+    qs = _queries(data, 4, seed=2)
+    Q, N = len(qs), len(data)
+    xs = np.repeat(qs, N, axis=0)
+    ys = np.tile(data, (Q, 1, 1))
+    ref_lb = np.asarray(ref_registry.get_envelope(name).batch(
+        xs, ys, eps=np.inf).dist)
+    port_lb = registry.get_envelope(name).batch(
+        xs, ys, eps=np.inf, device="cpu").dist.numpy()
+    port = Retriever.build(RetrievalConfig(name, index="linear",
+                                           device="cpu"), data)
+    host = Retriever.build(RetrievalConfig(name, index="linear",
+                                           backend="numpy", device="cpu"),
+                           data)
+    refr = ref.Retriever.build(ref.RetrievalConfig(
+        name, index="linear", backend="pallas", kernel_exec="scan"), data)
+    # bounds among the smaller ones, where ε decides hits and prunes both
+    pick = np.quantile(ref_lb, [0.02, 0.1, 0.3])
+    checked = 0
+    for lb in (ref_lb, port_lb):
+        for q in pick:
+            eps = float(lb[np.argmin(np.abs(lb - q))])
+            want = host.batch(qs).range(eps)
+            got = port.batch(qs).via("batched").lb("envelope").range(eps)
+            assert got.hits == want.hits, eps
+            assert got.hits == refr.batch(qs).via("batched").lb(
+                "envelope").range(eps).hits
+            assert port.counter.lb_tier_pruned.get("envelope", 0) > 0
+            checked += sum(len(h) for h in want.hits)
+    assert checked > 0

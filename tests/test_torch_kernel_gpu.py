@@ -5,7 +5,8 @@ Imports only the port, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
 
-Tolerance: Levenshtein distances bit-equal; float modes ``rtol = atol =
+Tolerance: Levenshtein distances bit-equal (tokens as int32 ids in f32
+storage, compared as integers); float modes ``rtol = atol =
 1e-5`` (the two versions run the same f32 operations in the same order;
 the plain version's run as separate CUDA kernels); hit and prune masks
 equal.  Pairwise L2: squared distances within ``(9d + 26 + 6d 2^-8) 2^-24
@@ -37,8 +38,8 @@ def _ragged(string, B, Lx, Ly, rng, d, dev, nonzero=False):
     ly = rng.integers(1, Ly + 1, B)
     lx[0], ly[0] = Lx, Ly  # the dispatch's widths are the row maxima
     if string:
-        xs = rng.integers(0, 6, size=(B, Lx)).astype(np.float32)
-        ys = rng.integers(0, 6, size=(B, Ly)).astype(np.float32)
+        xs = rng.integers(0, 6, size=(B, Lx)).astype(np.int32)
+        ys = rng.integers(0, 6, size=(B, Ly)).astype(np.int32)
     else:
         xs = rng.normal(size=(B, Lx, d)).astype(np.float32)
         ys = rng.normal(size=(B, Ly, d)).astype(np.float32)
@@ -46,8 +47,11 @@ def _ragged(string, B, Lx, Ly, rng, d, dev, nonzero=False):
         for i in range(B):
             xs[i, lx[i]:] = 0
             ys[i, ly[i]:] = 0
-    lens = np.stack([lx, ly], 1).astype(np.int32)
-    return [torch.as_tensor(a, device=dev) for a in (xs, ys, lens)]
+    lens = torch.as_tensor(np.stack([lx, ly], 1).astype(np.int32),
+                           device=dev)
+    if string:  # int32 ids, as the registry hands them over
+        return [wf.lev_operand(xs, dev), wf.lev_operand(ys, dev), lens]
+    return [torch.as_tensor(a, device=dev) for a in (xs, ys)] + [lens]
 
 
 @pytest.mark.gpu
@@ -84,6 +88,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         wf.wavefront_cuda(xs, ys, lens, eps.double(), mode="lev")
     with pytest.raises(ValueError, match="dtype"):
         wf.wavefront_cuda(xs.long(), ys.long(), lens, eps, mode="lev")
+    with pytest.raises(ValueError, match="dtype"):  # never reinterpreted
+        wf.wavefront_cuda(xs.float(), ys.float(), lens, eps, mode="lev")
     with pytest.raises(ValueError, match="contiguous"):
         wf.wavefront_cuda(xs, ys.T.contiguous().T, lens, eps, mode="lev")
     with pytest.raises(ValueError, match="shape"):
@@ -105,6 +111,44 @@ def test_counted_dispatches_are_kernel_launches(cuda_device):
     st = r.eval_stats()
     assert rs.hits
     assert wf.LAUNCHES - before == st["build_dispatches"] + st["dispatches"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["2**24", "2**31-1"])
+def test_large_levenshtein_ids_are_exact_on_the_card(cuda_device, case):
+    """Token ids that f32 rounds together count as distinct on the card:
+    through the counter's default (``kernel``) backend, 4.0 as the numpy
+    backend gives, and the kernel bit-equal to its plain version on ids
+    spread over the whole of int32 (some of whose bit patterns are NaNs as
+    floats)."""
+    from repro_torch.core.counter import CountedDistance
+    from repro_torch.distances import get
+    base = (1 << 24) if case == "2**24" else (1 << 31) - 8
+    x = np.array([base + 2 * i for i in range(4)], np.int64)
+    y = x + 1
+    data = np.stack([x, y])
+    before = wf.LAUNCHES
+    got = CountedDistance(get("levenshtein"), data,
+                          device=cuda_device).eval(x, [1])
+    want = CountedDistance(get("levenshtein"), data,
+                           backend="numpy").eval(x, [1])
+    assert wf.LAUNCHES == before + 1
+    assert float(got[0]) == float(want[0]) == 4.0
+    rng = np.random.default_rng(7)
+    B, L = 96, 12
+    ids = rng.integers(-(1 << 31), 1 << 31, size=(B, L), dtype=np.int64)
+    ys = np.where(rng.random((B, L)) < 0.5, ids, ids ^ 1)
+    xs_t = wf.lev_operand(ids, cuda_device)
+    ys_t = wf.lev_operand(ys, cuda_device)
+    assert torch.isnan(xs_t.view(torch.float32)).any()
+    lens = torch.full((B, 2), L, dtype=torch.int32, device=cuda_device)
+    eps = torch.full((B,), 6.0, device=cuda_device)
+    got = wf.wavefront_cuda(xs_t, ys_t, lens, eps, mode="lev")
+    want = wf.wavefront_torch(xs_t, ys_t, lens, eps, mode="lev")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[1].any() and (~got[1]).any()
 
 
 @pytest.mark.gpu

@@ -66,7 +66,7 @@ def test_registry_and_configs_match_reference():
         assert param_count(mod.param_defs(cfg)) == ref_param_count(
             ref_mod.param_defs(want))
     for arch in ref_registry.names():
-        if arch != ARCH:
+        if arch not in registry.names():
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 registry.get(arch)
 

@@ -454,7 +454,16 @@ def test_dedup_corpus_matches_reference(monkeypatch):
 
 
 def test_dedup_corpus_rejects_token_ids_inexact_as_f32():
-    corpus = token_corpus(2, 32, 50, seed=0)
-    corpus[1, 3] = 1 << 24
-    with pytest.raises(ValueError, match="2\\*\\*24"):
-        pipeline.dedup_corpus(corpus, device="cpu")
+    """Token ids of ``2**24`` and above, which f32 rounds together, are
+    carried exactly (the same documents kept as the reference's); ids
+    outside int32 are refused."""
+    corpus = token_corpus(16, 64, 50, seed=2, dup_frac=0.3)
+    big = corpus.astype(np.int64) + (1 << 24)
+    got = pipeline.dedup_corpus(big, lam=16, eps=1.0, max_docs=16,
+                                device="cpu")
+    want = ref_pipeline.dedup_corpus(big, lam=16, eps=1.0, max_docs=16)
+    assert len(got) < len(big)
+    np.testing.assert_array_equal(got, want)
+    big[1, 3] = 1 << 31
+    with pytest.raises(ValueError, match="int32"):
+        pipeline.dedup_corpus(big, device="cpu")

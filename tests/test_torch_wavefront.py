@@ -186,10 +186,10 @@ def test_pack_meta_is_a_stable_bucket_sort():
 
 
 def _unpadded(name, xs, ys, lx, ly):
-    """The kernel's operands: rows as they are, f32 tokens or f32 series
-    ``(B, L, d)``, lengths ``(B, 2)`` int32."""
+    """The kernel's operands: rows as they are, int32 token ids or f32
+    series ``(B, L, d)``, lengths ``(B, 2)`` int32."""
     if ref_get(name).string:
-        xs, ys = (torch.as_tensor(a.astype(np.float32)) for a in (xs, ys))
+        xs, ys = (torch.as_tensor(a.astype(np.int32)) for a in (xs, ys))
     else:
         xs, ys = torch.as_tensor(xs), torch.as_tensor(ys)
     return xs, ys, torch.as_tensor(np.stack([lx, ly], 1).astype(np.int32))
@@ -254,8 +254,9 @@ def test_cpu_tensors_take_the_plain_version_cuda_wrapper_refuses_them():
                                    np.float64])
 def test_levenshtein_tokens_of_any_dtype_reach_the_kernel_as_f32(
         dtype, monkeypatch):
-    """Tokens ride as f32 ``(B, L)`` on every device, as in the reference:
-    the registry hands the kernel wrapper the same operands whatever the
+    """Tokens ride as ``(B, L)`` int32 ids on every device (the reference
+    casts them to f32, which is exact below ``2**24``, as here): the
+    registry hands the kernel wrapper the same operands whatever the
     tokens' dtype, and the answers are the reference's."""
     rng = np.random.default_rng(45)
     xs, ys, lx, ly = _ragged("levenshtein", 16, 7, 6, rng)
@@ -269,7 +270,7 @@ def test_levenshtein_tokens_of_any_dtype_reach_the_kernel_as_f32(
     monkeypatch.setattr(registry, "wavefront", spy)
     eps_v = np.full(16, _eps_mid("levenshtein", xs, ys, lx, ly), np.float32)
     got = _port("levenshtein", xs, ys, lx, ly, eps_v)
-    assert seen == [(torch.float32, torch.float32, (16, 7), (16, 6))]
+    assert seen == [(torch.int32, torch.int32, (16, 7), (16, 6))]
     ref = ref_registry.get("levenshtein").batch(xs, ys, lx, ly, eps=eps_v,
                                                 exec="scan")
     _assert_match("levenshtein", got, ref)
