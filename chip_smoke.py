@@ -49,7 +49,18 @@ version on the card.  Then it drives the port's two paths:
   busy time in one traced step and, for the MoE model, the share of
   routed assignments the capacity dispatch drops (every dispatch's kept
   set held to a token-major oracle in plain Python, beside the router's
-  per-expert load and the correlation of its logits across tokens).
+  per-expert load and the correlation of its logits across tokens);
+* the SSM families (phase 13): mamba2-370m and zamba2-1.2b whole at their
+  published widths (random weights from a seed), decode after a one-chunk
+  and a three-chunk prefill held to the forward in f32 (one step, eight
+  greedy steps), bf16 serving timed against the step's byte bound with
+  the scan's share of a traced step and prefill, the ``long_500k`` decode
+  shape (batch 1) at three cache lengths from seeded caches (the new keys
+  read back at their position), training in f32 (mamba2 through the train
+  CLI, zamba2 through its ``Trainer``: finite gradients, a falling loss),
+  and mamba2's embedding path: its pooled hidden states (``d = 1024``)
+  indexed, range hits held to the exact ``pairwise_l2`` matrix (one
+  launch, counted from zero) and, at a cut size, to the numpy backend.
 
 Levenshtein token ids over all of int32 (``2**24`` and up, where f32
 rounds ids together) are held to the numpy backend through the counter
@@ -2007,9 +2018,13 @@ def greedy_parity(torch, mod, model, cfg, prompt):
     return worst, margin
 
 
-def cache_len(cache) -> int:
-    return next(v.shape[2] for k, v in cache.items()
-                if k != "pos" and v is not None)
+def cache_len(cache) -> float:
+    """Positions the cache holds: the length of its sequence-indexed
+    entries (``common.seq_indexed``), infinite for an SSM's conv window and
+    state, which hold no positions."""
+    from repro_torch.models.common import seq_indexed
+    return min((v.shape[2] for k, v in cache.items()
+                if seq_indexed(k) and v is not None), default=float("inf"))
 
 
 def cache_bytes(cache) -> int:
@@ -2017,12 +2032,13 @@ def cache_bytes(cache) -> int:
                if k != "pos" and v is not None)
 
 
-def timed_decode(torch, mod, model, cfg, B, P, steps, dev, rng, drops=None):
+def timed_decode(torch, mod, model, cfg, B, P, steps, dev, rng, drops=None,
+                 spans=()):
     """Prefill ``B`` prompts of ``P`` tokens and decode ``steps`` greedy
     tokens, after a short untimed warm-up.  Returns the seconds of the
     prefill, of the cache's growth and of the decode, the final cache's
     bytes (the last step's logits must be finite) and the
-    :func:`profile_step` of one more step.  ``drops`` (a
+    :func:`profile_step` of one more step (with ``spans``).  ``drops`` (a
     :class:`MoeProbe`) marks the prefill and the decode."""
     from repro_torch.models.common import grow_cache
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
@@ -2056,9 +2072,9 @@ def timed_decode(torch, mod, model, cfg, B, P, steps, dev, rng, drops=None):
     # one more step, traced: the card's busy time within a step
     if int(cache["pos"]) + 1 < cache_len(cache):
         busy = profile_step(torch, lambda: mod.decode_step(model, cache, tok,
-                                                           cfg))
+                                                           cfg), spans)
     else:
-        busy = (float("nan"), 0, float("nan"))
+        busy = (float("nan"), 0, float("nan"), {})
     if int(cache["pos"]) != P - 1 + steps or not bool(
             torch.isfinite(lg).all()):
         raise AssertionError(f"decode ended at pos {int(cache['pos'])}, "
@@ -2066,24 +2082,49 @@ def timed_decode(torch, mod, model, cfg, B, P, steps, dev, rng, drops=None):
     return prefill_s, grow_s, decode_s, cache_bytes(cache), busy
 
 
-def profile_step(torch, fn) -> tuple:
+def profile_step(torch, fn, spans=()) -> tuple:
     """One call of ``fn`` under ``torch.profiler`` with CUDA activity:
     (the summed device time of its kernels in ms, the number of kernels
-    and copies, the wall ms of the traced call).  The device time over the
-    wall time is the share the card is busy."""
-    from torch.profiler import ProfilerActivity, profile
+    and copies, the wall ms of the traced call, the device ms of each
+    span).  The device time over the wall time is the share the card is
+    busy.  ``spans`` are ``(module, function name)`` pairs: while traced,
+    each such function runs inside a ``record_function`` range of its name,
+    and the device time of the kernels launched inside is summed by
+    name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = []
+    for module, name in spans:
+        orig = getattr(module, name)
+
+        def inside(*a, _orig=orig, _name=name, **kw):
+            with record_function(_name):
+                return _orig(*a, **kw)
+
+        saved.append((module, name, orig))
+        setattr(module, name, inside)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall = sync_s(torch, t0) * 1e3
-    dev_us, n = 0.0, 0
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall = sync_s(torch, t0) * 1e3
+    finally:
+        for module, name, orig in saved:
+            setattr(module, name, orig)
+    names = {name for _, name in spans}
+    dev_us, n, span_us = 0.0, 0, dict.fromkeys(names, 0.0)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us += e.time_range.elapsed_us()
-            n += 1
-    return dev_us / 1e3, n, wall
+            if e.name not in names:  # not a range's own device-side mark
+                dev_us += e.time_range.elapsed_us()
+                n += 1
+        elif e.name in names:  # the host range: its kernels, children's too
+            span_us[e.name] += e.device_time_total
+    silent = sorted(k for k, v in span_us.items() if not v > 0)
+    if silent:  # called under another name, or not at all
+        raise AssertionError(f"profile: no device time inside {silent}")
+    return dev_us / 1e3, n, wall, {k: v / 1e3 for k, v in span_us.items()}
 
 
 def step_bound_ms(model, cache_b: int) -> tuple:
@@ -2351,16 +2392,498 @@ def phase_decode(torch, wf, pl2, args, dev) -> dict:
     return out
 
 
+# -- phase 13: Mamba2 and the Zamba2 hybrid -----------------------------------
+
+#: the SSM families of phase 13, with the seed of their weights
+SSM_ARCHS = (("mamba2-370m", 21), ("zamba2-1.2b", 22))
+#: prompts of the f32 parity checks: one chunk, and 300 tokens (padded to
+#: three chunks of 128)
+SSM_PARITY_PROMPTS = (32, 300)
+#: cache lengths of the long decode, the last ``SHAPES["long_500k"]``'s
+LONG_LENGTHS = (32_768, 131_072)
+#: untimed and timed steps of a long decode at each cache length
+LONG_WARM, LONG_STEPS = 2, 16
+#: training steps of mamba2-370m (through the train CLI) and zamba2-1.2b
+SSM_TRAIN_STEPS, HYBRID_TRAIN_STEPS = 10, 3
+
+
+def span_text(span_ms: dict) -> str:
+    """``name:ms,...`` of :func:`profile_step`'s spans."""
+    return ",".join(f"{k}:{v:.3f}" for k, v in sorted(span_ms.items()))
+
+
+def ssm_step_bound_ms(model, cfg, cache_b: int) -> tuple:
+    """:func:`step_bound_ms` for the SSM families: the hybrid's one shared
+    block is read once per application (at 134 MB in bf16 it does not stay
+    in the 50 MB L2 from one application to the next).  Returns (bound ms,
+    weight bytes as counted)."""
+    from repro_torch.models import hybrid
+    bound, w = step_bound_ms(model, cache_b)
+    if cfg.family != "hybrid":
+        return bound, w
+    shared = sum(p.numel() * p.element_size()
+                 for p in model.shared.parameters())
+    extra = (hybrid.n_applications(cfg) - 1) * shared
+    return bound + extra / PEAK_BYTES * 1e3, w + extra
+
+
+class KVWrites:
+    """Keeps, while entered, the last write of ``hybrid.update_cache`` (the
+    KV caches' one write a decode step): the cache, what was written and at
+    which position, so the write can be read back."""
+
+    def __enter__(self):
+        from repro_torch.models import hybrid
+        self._mod, self._orig = hybrid, hybrid.update_cache
+        self.last = {}
+
+        def update(cache, new, pos, seq_axis=1):
+            self.last[id(cache)] = (new, pos)
+            return self._orig(cache, new, pos, seq_axis=seq_axis)
+
+        hybrid.update_cache = update
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.update_cache = self._orig
+
+
+def long_decode(torch, mod, model, cfg, S, steps, dev, seed):
+    """One sequence decoding against a cache of ``S`` positions without a
+    prefill: every cache entry filled with seeded normal values (the SSM
+    state in f32, as a prefill leaves it), ``pos`` at ``S - steps -
+    LONG_WARM - 2``, so the warm-up, the ``steps`` timed steps and one
+    traced step write the cache's last positions.  Checks finite logits,
+    ``pos`` advanced, the last K and V writes read back at their position
+    and the positions before the first write unchanged.  Returns (wall ms a
+    step, traced (device ms, kernels, wall ms), cache bytes)."""
+    from repro_torch.models.common import init_cache
+    B = 1
+    cache = init_cache(mod.cache_defs(cfg, B, S), torch.bfloat16, dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    for k, v in cache.items():
+        if k != "pos":
+            v.normal_(generator=g)
+    pos0 = S - steps - LONG_WARM - 2
+    cache["pos"].fill_(pos0)
+    kv = "k" in cache
+    if kv:  # the positions no step writes: read before and after
+        before = {k: cache[k][:, :, pos0 - 3:pos0 + 1].clone()
+                  for k in ("k", "v")}
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev)
+    with KVWrites() as writes:
+        for _ in range(LONG_WARM):
+            lg, cache = mod.decode_step(model, cache, tok, cfg)
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg, cache = mod.decode_step(model, cache, tok, cfg)
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+        ms = sync_s(torch, t0) / steps * 1e3
+        traced = {}
+        busy = profile_step(torch, lambda: traced.update(
+            out=mod.decode_step(model, cache, tok, cfg)))
+        lg, cache = traced.pop("out")
+        for k in ("k", "v") if kv else ():
+            new, pos = writes.last[id(cache[k])]
+            if int(pos) != S - 1 or not torch.equal(
+                    cache[k][:, :, S - 1:S], new.to(cache[k].dtype)):
+                raise AssertionError(f"long decode at {S}: the last {k} was "
+                                     f"not written at {S - 1}")
+            if not torch.equal(cache[k][:, :, pos0 - 3:pos0 + 1], before[k]):
+                raise AssertionError(f"long decode at {S}: {k} positions "
+                                     "before the first step were overwritten")
+    if int(cache["pos"]) != S - 1 or not bool(torch.isfinite(lg).all()) \
+            or not bool(torch.isfinite(cache["state"]).all()):
+        raise AssertionError(f"long decode at {S}: pos {int(cache['pos'])}, "
+                             f"finite logits {bool(torch.isfinite(lg).all())}")
+    if cache["state"].dtype != torch.float32:
+        raise AssertionError("long decode: the SSM state is not f32")
+    cb = cache_bytes(cache)
+    del cache
+    return ms, busy, cb
+
+
+def ssm_train(torch, arch, steps, dev, via_cli: bool) -> dict:
+    """Training at the published widths in f32 with ``remat="block"``,
+    batch 4 x 256, the train CLI's corpus and optimizer: through
+    ``launch/train.py`` itself (``via_cli``, which ends with a checkpoint),
+    or through the ``Trainer`` it makes, its initialisation and step
+    function over its batches, without the checkpoint (zamba2-1.2b's, f32
+    weights and moments, would be 14 GB written for nothing this phase
+    reads).  Checks finite losses and gradient norms (the reference's
+    chunked scan gives a NaN gradient here, ROADMAP Queue 3) and a falling
+    loss: the first step's batch, evaluated again with the trained
+    weights, has a lower loss than at the first step (the same tokens, so
+    no batch-to-batch noise); the last step's loss is reported beside the
+    first's.  The initial gradient's norm is split by leaf
+    (:func:`leaf_grad_norms`), and the parts must make up the first
+    step's norm."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry as models
+    from repro_torch.train import train_state
+    cfg, mod = models.get(arch)
+    if cfg.remat != "block" or cfg.ssm_chunk != 128:
+        raise AssertionError(f"{arch} trains with remat={cfg.remat!r}, "
+                             f"chunk {cfg.ssm_chunk}")
+    batch, seq = 4, 256
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssm_train_")
+    argv = ["--arch", arch, "--device", str(dev), "--steps", str(steps),
+            "--batch", str(batch), "--seq", str(seq), "--log-every", "1",
+            "--ckpt-every", str(10 * steps), "--ckpt-dir", tmp]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        targs = train_cli.parser().parse_args(argv)
+        tr = train_cli.trainer_for(targs, cfg, mod,
+                                   train_cli.corpus_for(targs, cfg))
+        params, opt_state, _ = tr.init_or_resume()
+        leaves = leaf_grad_norms(torch, mod, cfg, params,
+                                 tr.batcher.batch_at(0))
+        if via_cli:
+            del params, opt_state
+            out = train_cli.main(argv)
+            params, lg = out["params"], out["log"]
+        else:
+            lg = []
+            for step in range(steps):
+                t1 = time.perf_counter()
+                params, opt_state, m = tr.step_fn(params, opt_state,
+                                                  tr.batcher.batch_at(step))
+                lg.append({"loss": float(m["loss"]),
+                           "grad_norm": float(m["grad_norm"]),
+                           "step_s": sync_s(torch, t1)})
+            del opt_state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [e["loss"] for e in lg]
+    norms = [e["grad_norm"] for e in lg]
+    step_s = [e["step_s"] for e in lg]
+    with torch.no_grad():
+        again = float(train_state.make_loss_fn(mod, cfg)(
+            params, tr.batcher.batch_at(0))[1]["loss"])
+    if len(lg) != steps or not np.isfinite(losses + norms + [again]).all() \
+            or again >= losses[0]:
+        raise AssertionError(f"{arch} training: {len(lg)} steps, losses "
+                             f"{losses}, grad norms {norms}, first batch "
+                             f"after training {again}")
+    parts = float(np.sqrt(sum(v * v for v in leaves.values())))
+    if not abs(parts - norms[0]) <= 1e-3 * norms[0]:
+        raise AssertionError(f"{arch}: the leaves' gradient norms make "
+                             f"{parts}, the first step's norm is {norms[0]}")
+    top = sorted(leaves.items(), key=lambda kv: -kv[1])[:4]
+    med = float(np.median(step_s[1:])) if steps > 1 else step_s[0]
+    log("ssm13-train", arch=arch, via="launch/train.py" if via_cli
+        else "Trainer.step_fn", layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype="float32", remat=cfg.remat, chunk=cfg.ssm_chunk, batch=batch,
+        seq=seq, steps=steps, losses=[round(x, 4) for x in losses],
+        first_batch_loss_after=f"{again:.4f}",
+        grad_norms=[round(x, 4) for x in norms],
+        init_grad_leaf_norms=",".join(f"{k}:{v:.4f}({v * v / parts ** 2:.4f})"
+                                      for k, v in top),
+        first_step_s=f"{step_s[0]:.3f}", step_s_median=f"{med:.4f}",
+        tokens_per_s=f"{batch * seq / med:.0f}", peak_bytes=peak,
+        total_s=f"{total_s:.2f}")
+    del params
+    return dict(loss_first=losses[0], loss_last=losses[-1],
+                loss_first_after=again, step_s=med, peak=peak,
+                leaf_norms=dict(top))
+
+
+def leaf_grad_norms(torch, mod, cfg, params, batch) -> dict:
+    """The norm of the loss gradient at ``params`` on ``batch``, by leaf:
+    each stacked leaf's layers together (``layers.w_in.weight`` for every
+    ``layers.<i>.w_in.weight``)."""
+    import re
+    from repro_torch.train import train_state
+    named = dict(params.named_parameters())
+    with torch.enable_grad():
+        total, _ = train_state.make_loss_fn(mod, cfg)(params, batch)
+        grads = torch.autograd.grad(total, list(named.values()))
+    sq = {}
+    for k, g in zip(named, grads):
+        leaf = re.sub(r"\.\d+\.", ".", k)
+        sq[leaf] = sq.get(leaf, 0.0) + float(g.double().square().sum())
+    return {k: v ** 0.5 for k, v in sq.items()}
+
+
+def ssm_embedding(torch, pl2, args, dev) -> dict:
+    """mamba2-370m's hidden states through ``embed_windows`` over C's
+    corpus, the ``embedding`` index and the exact all-pairs step through
+    ``pairwise_l2`` (counted from a zeroed count), the range hits held to
+    that matrix and, at a cut size, to the numpy host backend; then the
+    kernel against its plain version at d = 1024."""
+    import numpy as np
+    from repro_torch.core.embedding_retrieval import embed_windows
+    from repro_torch.data.synthetic import token_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry as models
+    from repro_torch.retrieval import RetrievalConfig, Retriever
+    t_emb = time.perf_counter()
+    cfg, mod = models.get("mamba2-370m")
+    model = build_model(torch, mod, cfg, torch.bfloat16, dev, seed=23)
+    window, doc_len = 16, 256
+    corpus = token_corpus(args.embed_docs, doc_len, cfg.vocab, seed=0,
+                          dup_frac=0.05)
+    embed_windows(mod, model, cfg, list(corpus[:8]), window, device=dev)
+    torch.cuda.synchronize()
+    pl2.LAUNCHES = 0  # the path's launches: counted from here
+    t0 = time.perf_counter()
+    vecs, meta = embed_windows(mod, model, cfg, list(corpus), window,
+                               device=dev)
+    embed_s = time.perf_counter() - t0
+    if vecs.shape != (args.embed_docs * doc_len // window, cfg.d_model) \
+            or not np.isfinite(vecs).all():
+        raise AssertionError(f"mamba2 embed_windows: {vecs.shape}")
+    dups = duplicate_docs(corpus)
+    if not dups:
+        raise ValueError("no planted duplicate documents: --embed-docs "
+                         "must be at least 20")
+    per = -(-64 // len(dups))
+    probe_ids = [dst * (doc_len // window) + w for dst, _ in dups
+                 for w in range(per)][:64]
+    twin_of = {dst * (doc_len // window) + w: src * (doc_len // window) + w
+               for dst, src in dups for w in range(per)}
+    probes = vecs[probe_ids]
+    cfg_ix = RetrievalConfig("euclidean", index="embedding", eps_prime=0.02,
+                             num_max=5, tight_bounds=True, device=str(dev))
+    t0 = time.perf_counter()
+    r = Retriever.build(cfg_ix, vecs)
+    build_s = sync_s(torch, t0)
+    eps = 0.5
+    t0 = time.perf_counter()
+    rs = r.batch(probes).range(eps)
+    range_s = time.perf_counter() - t0
+    if any(pid not in rs.hits[i] for i, pid in enumerate(probe_ids)):
+        raise AssertionError("mamba2 range: a probe misses itself")
+    twins = sum(twin_of[pid] in rs.hits[i] for i, pid in enumerate(probe_ids))
+    x = torch.as_tensor(probes, device=dev)
+    y = torch.as_tensor(vecs, device=dev)
+    D = ops.pairwise_l2(x, y)
+    torch.cuda.synchronize()
+    launches = pl2.LAUNCHES  # the path ends here
+    if launches != 1:
+        raise AssertionError(f"pairwise_l2: {launches} launches on the "
+                             "mamba2 embedding path, expected 1")
+    band = l2_sq_bound(x, y)
+    d2 = D.double() ** 2
+    brute = (d2 <= eps * eps).cpu().numpy()
+    outside = ((d2 - eps * eps).abs() > band).cpu().numpy()
+    got = np.zeros_like(brute)
+    for i, hits in enumerate(rs.hits):
+        got[i, hits] = True
+    if (got != brute)[outside].any():
+        raise AssertionError("mamba2 range hits differ from the pairwise_l2 "
+                             "matrix outside the band")
+    t0 = time.perf_counter()
+    n_cut = min(EMBED_PARITY_WINDOWS, len(vecs))
+    cut_probes = [p for p in probe_ids if p < n_cut][:16] or list(range(16))
+    res = {}
+    for be in ("numpy", "kernel"):
+        rb = Retriever.build(cfg_ix.replace(backend=be), vecs[:n_cut])
+        a = rb.batch(vecs[cut_probes]).range(eps)
+        res[be] = (a.hits, a.stats, rb.eval_stats())
+    if res["numpy"] != res["kernel"]:
+        raise AssertionError("mamba2 embedding: range hits or counts differ "
+                             "from the numpy host backend")
+    parity_s = time.perf_counter() - t0
+    # the kernel against its plain version at the path's shapes (these
+    # launches are not the path's)
+    ratio, err = compare_l2(torch, pl2, x, y)
+    log("ssm13-embed", arch=cfg.name, d_model=cfg.d_model,
+        docs=args.embed_docs, windows=len(vecs), embed_s=f"{embed_s:.3f}",
+        tokens_per_s=f"{corpus.size / embed_s:.0f}",
+        build_s=f"{build_s:.2f}", build_evals=r.eval_stats()["build"],
+        probes=len(probe_ids), range_eps=eps,
+        range_hits=sum(len(h) for h in rs.hits), twins_found=twins,
+        range_s=f"{range_s:.3f}", band_pairs=int((~outside).sum()),
+        host_parity_windows=n_cut, host_parity_probes=len(cut_probes),
+        host_parity_s=f"{parity_s:.2f}",
+        pairwise_l2_launches=launches,
+        kernel_sq_err_over_bound=f"{ratio:.4g}", kernel_max_abs_err=err,
+        s=f"{time.perf_counter() - t_emb:.2f}")
+    del model
+    return dict(launches=launches, max_abs_err=err, ratio=ratio,
+                embed_s=embed_s, build_s=build_s)
+
+
+def phase_ssm(torch, wf, pl2, args, dev) -> dict:
+    """Phase 13: Mamba2 and the Zamba2 hybrid whole at their published
+    widths (seeded weights).  (a) f32: decode after a prefill equals
+    forward, and greedy steps equal the forward's argmax, at a one-chunk
+    and a three-chunk prompt.  (b) bf16 serving: prefill and decode timed
+    against the step's byte bound, one step traced.  (c) the ``long_500k``
+    decode (``SHAPES``, chosen by ``sub_quadratic``) at three cache
+    lengths.  (d) training (mamba2 through ``launch/train.py``, zamba2
+    through its ``Trainer``).  (e) mamba2's
+    embedding path through ``pairwise_l2``.  (a)-(d) launch neither
+    hand-written kernel (checked)."""
+    import gc
+    import numpy as np
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.models import hybrid, mamba2
+    from repro_torch.models import registry as models
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    wf.LAUNCHES = pl2.LAUNCHES = 0
+    long_shape = SHAPES["long_500k"]
+    lengths = LONG_LENGTHS + (long_shape.seq_len,)
+    out = {"long": {}}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    for arch, seed in SSM_ARCHS:
+        t_arch = time.perf_counter()
+        cfg, mod = models.get(arch)
+        shape = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                     ssm_heads=f"{cfg.ssm_heads}x{cfg.ssm_head_dim}",
+                     state=cfg.ssm_state, chunk=cfg.ssm_chunk, vocab=cfg.vocab)
+        if cfg.family == "hybrid":
+            shape.update(attn_every=cfg.attn_every,
+                         shared_heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x"
+                         f"{cfg.head_dim}", d_ff=cfg.d_ff)
+        # (a) f32 parity
+        t0 = time.perf_counter()
+        model = build_model(torch, mod, cfg, torch.float32, dev, seed)
+        build_s = sync_s(torch, t0)
+        n_params = sum(p.numel() for p in model.parameters())
+        for P in SSM_PARITY_PROMPTS:
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, P + 1)),
+                                     device=dev)
+            err, scale = decode_parity(torch, mod, model, cfg, tokens,
+                                       f"{arch} prompt {P}")
+            g_err, margin = greedy_parity(torch, mod, model, cfg,
+                                          tokens[:, :P])
+            log("ssm13-parity", arch=arch, **shape, params=n_params,
+                dtype="float32", build_s=f"{build_s:.2f}", prompt=P,
+                chunks=-(-P // min(cfg.ssm_chunk, P)),
+                decode_max_abs_err=err, logit_scale=f"{scale:.3f}",
+                greedy_steps=GREEDY_STEPS, greedy_max_abs_err=g_err,
+                greedy_min_top2_margin=f"{margin:.4g}", rtol=DECODE_RTOL,
+                atol=DECODE_ATOL, s=f"{time.perf_counter() - t_arch:.2f}")
+        del model
+        free()
+
+        # (b) bf16 serving
+        t0 = time.perf_counter()
+        model = build_model(torch, mod, cfg, torch.bfloat16, dev, seed)
+        build_s = sync_s(torch, t0)
+        build_peak = torch.cuda.max_memory_allocated(dev)
+        B, P, steps = args.decode_batch, args.prompt_len, args.decode_steps
+        torch.cuda.reset_peak_memory_stats(dev)
+        spans = [(mamba2, "ssd_step"), (mamba2, "causal_conv1d")]
+        if cfg.family == "hybrid":
+            spans.append((hybrid, "_shared_block"))
+        pre_s, grow_s, dec_s, cb, busy = timed_decode(
+            torch, mod, model, cfg, B, P, steps, dev, rng, spans=spans)
+        bound, wbytes = ssm_step_bound_ms(model, cfg, cb)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms = dec_s / steps * 1e3
+        # one more prefill, traced: the chunked scan's share of it
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                                 device=dev)
+        spans[0] = (mamba2, "ssd_chunked")
+        pre = profile_step(torch, lambda: mod.forward(
+            model, {"tokens": prompt}, cfg, return_cache=True), spans)
+        del prompt
+        log("ssm13-timed", arch=arch, dtype="bfloat16", batch=B, prompt=P,
+            steps=steps, build_s=f"{build_s:.2f}", prefill_s=f"{pre_s:.4f}",
+            prefill_tokens_per_s=f"{B * P / pre_s:.0f}",
+            decode_ms_per_step=f"{ms:.3f}",
+            decode_tokens_per_s=f"{B * steps / dec_s:.0f}",
+            step_bound_ms=f"{bound:.3f}", bound_share=f"{bound / ms:.3f}",
+            traced_step_device_ms=f"{busy[0]:.3f}",
+            traced_step_kernels=busy[1],
+            traced_step_wall_ms=f"{busy[2]:.3f}",
+            busy_share=f"{busy[0] / ms:.3f}",
+            traced_step_span_ms=span_text(busy[3]),
+            traced_prefill_device_ms=f"{pre[0]:.3f}",
+            traced_prefill_kernels=pre[1],
+            traced_prefill_wall_ms=f"{pre[2]:.3f}",
+            traced_prefill_span_ms=span_text(pre[3]), weight_bytes=wbytes,
+            cache_bytes=cb, build_peak_bytes=build_peak, peak_bytes=peak,
+            s=f"{time.perf_counter() - t_arch:.2f}")
+        out[arch] = dict(prefill_s=pre_s, decode_ms=ms, bound_ms=bound,
+                         peak=peak, busy=busy, prefill_trace=pre)
+
+        # (c) the long_500k decode, at three cache lengths
+        if not cfg.sub_quadratic or long_shape.global_batch != 1:
+            raise AssertionError(f"{arch}: not runnable at long_500k")
+        rows = []
+        for i, S in enumerate(lengths):
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms_l, busy_l, cb_l = long_decode(torch, mod, model, cfg, S,
+                                             LONG_STEPS, dev, seed=100 + i)
+            bound_l, _ = ssm_step_bound_ms(model, cfg, cb_l)
+            peak_l = torch.cuda.max_memory_allocated(dev)
+            log("ssm13-long", arch=arch, shape=long_shape.name, cache_len=S,
+                batch=1, steps=LONG_STEPS, dtype="bfloat16",
+                decode_ms_per_step=f"{ms_l:.3f}",
+                traced_step_device_ms=f"{busy_l[0]:.3f}",
+                traced_step_kernels=busy_l[1],
+                traced_step_wall_ms=f"{busy_l[2]:.3f}",
+                step_bound_ms=f"{bound_l:.3f}",
+                bound_share=f"{bound_l / ms_l:.3f}",
+                device_bound_share=f"{bound_l / busy_l[0]:.3f}",
+                cache_bytes=cb_l, peak_bytes=peak_l,
+                s=f"{time.perf_counter() - t_arch:.2f}")
+            rows.append(dict(S=S, ms=ms_l, device_ms=busy_l[0],
+                             bound_ms=bound_l))
+            free()
+        first, last = rows[0]["device_ms"], rows[-1]["device_ms"]
+        if cfg.family == "hybrid" and not last > 2 * first:
+            raise AssertionError(f"{arch}: a step's device time does not "
+                                 f"grow with the cache ({first} -> {last} ms)")
+        if cfg.family == "ssm" and not 0.67 < last / first < 1.5:
+            raise AssertionError(f"{arch}: a step's device time moves with "
+                                 f"the position ({first} -> {last} ms)")
+        out["long"][arch] = rows
+        del model
+        free()
+
+    # (d) training
+    out["train"] = {
+        "mamba2-370m": ssm_train(torch, "mamba2-370m", SSM_TRAIN_STEPS, dev,
+                                 via_cli=True),
+        "zamba2-1.2b": ssm_train(torch, "zamba2-1.2b", HYBRID_TRAIN_STEPS,
+                                 dev, via_cli=False)}
+    free()
+    out["launches"] = {"wavefront": wf.LAUNCHES, "pairwise_l2": pl2.LAUNCHES}
+    if any(out["launches"].values()):
+        raise AssertionError(f"ssm: hand-written kernels launched "
+                             f"{out['launches']} in (a)-(d)")
+    # (e) the embedding path
+    out["embedding"] = ssm_embedding(torch, pl2, args, dev)
+    free()
+    log("ssm13-done", launches_wavefront=out["launches"]["wavefront"],
+        launches_pairwise_l2=out["launches"]["pairwise_l2"],
+        embedding_pairwise_l2_launches=out["embedding"]["launches"],
+        s=f"{time.perf_counter() - t_phase:.2f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 20,000 windows build in 120-210 s on the H100 host; step 4 at lam=40
     # costs 25-70 s of host plan code per 120-token query and eps there.
     # With every path driven, the script took 1,230.55 s at 20,000 windows
     # and 640 documents on a slow host (limit 1,200 s): both are cut to
-    # half, which cuts about 400 s there
+    # half, which cuts about 400 s there.  Phase 13 adds 165-193 s (a whole
+    # run took 947.09 s on an H100 80GB HBM3 at 700 W with a slow host), so
+    # step 4 runs one query, not two: 58 s less on that host
     ap.add_argument("--windows-a", type=int, default=10000,
                     help="windows of the lam=40 steps 1-4 run")
-    ap.add_argument("--queries-a", type=int, default=2,
+    ap.add_argument("--queries-a", type=int, default=1,
                     help="queries of the lam=40 steps 1-4 run")
     ap.add_argument("--windows-b", type=int, default=3000,
                     help="windows of the quickstart three-query run")
@@ -2397,6 +2920,9 @@ def main(argv=None) -> int:
     ap.add_argument("--moe-layers", type=int, default=3,
                     help="MoE layers of the timed deepseek-v2 cut (after "
                          "its one dense layer)")
+    # phase 13: mamba2-370m and zamba2-1.2b whole; their timed decode takes
+    # --decode-batch, --prompt-len and --decode-steps, their embedding run
+    # --embed-docs
     args = ap.parse_args(argv)
 
     import torch
@@ -2439,6 +2965,7 @@ def main(argv=None) -> int:
     train = phase_train(torch, wf, dispatch, args, dev)
     log("index-train-phases", s=f"{time.perf_counter() - t_new:.2f}")
     decode = phase_decode(torch, wf, pl2, args, dev)
+    ssm = phase_ssm(torch, wf, pl2, args, dev)
     timing = phase_timing(torch, wf, build, rng, dev, full["sizes"])
     l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
@@ -2456,7 +2983,8 @@ def main(argv=None) -> int:
                              "indexes": index_launches,
                              "train_dedup": train["launches"],
                              "lev_ids": lev_launches,
-                             "decode": decode["launches"]["wavefront"]},
+                             "decode": decode["launches"]["wavefront"],
+                             "ssm": ssm["launches"]["wavefront"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2464,10 +2992,13 @@ def main(argv=None) -> int:
         "name": "pairwise_l2", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
         "replaces": "src/repro/kernels/pairwise_l2.py:47",
-        "launches": emb["launches"],
+        "launches": emb["launches"] + ssm["embedding"]["launches"],
         "launches_by_path": {"embedding": emb["launches"],
-                             "decode": decode["launches"]["pairwise_l2"]},
+                             "decode": decode["launches"]["pairwise_l2"],
+                             "ssm": ssm["launches"]["pairwise_l2"],
+                             "ssm_embedding": ssm["embedding"]["launches"]},
         **l2_err,
+        "max_abs_err_ssm_embedding": ssm["embedding"]["max_abs_err"],
         **l2_rows[0]}]
     log("total", s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 input-shape cells.
 
 A copy of the reference's ``ModelConfig`` and ``ShapeConfig``/``SHAPES``:
-the port reads the same fields (the families it has not ported yet keep
-theirs, so a config names one model in both packages).
+the port reads the same fields, so a config names one model in both
+packages.
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import device as device_mod
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.params import ParamDef
+from repro_torch.models.params import ParamDef, params_from_jax
 
 
 def embed_defs(cfg) -> dict:
@@ -92,19 +93,78 @@ def scan_blocks(block_fn: Callable, h: torch.Tensor, blocks, *,
     return carry[0], carry[1], _stack(ys)
 
 
+def seq_indexed(key: str) -> bool:
+    """Cache entries indexed by position along axis 2: the KV caches and
+    MLA's latents (an SSM's ``conv`` window and ``state`` are not)."""
+    return key in ("k", "v") or key.endswith("ckv") or key.endswith("kr")
+
+
 def grow_cache(cache: dict, length: int) -> dict:
-    """A prefill cache with room to decode: every layer-stacked entry
-    (``(L, B, S, ...)``) zero-padded along its length axis to ``length``;
-    ``pos`` and absent entries unchanged.  (The reference pads its caches
-    the same way before decoding, ``tests/test_models_smoke.py``.)"""
+    """A prefill cache with room to decode: the sequence-indexed entries
+    (``k``, ``v``, ``*ckv``, ``*kr``, ``(L, B, S, ...)``) zero-padded along
+    their length axis to ``length``; every other entry unchanged.  (The
+    reference pads its caches the same way before decoding,
+    ``tests/test_models_smoke.py``.)"""
     out = {}
     for k, v in cache.items():
-        if isinstance(v, torch.Tensor) and v.ndim >= 3:
+        if isinstance(v, torch.Tensor) and seq_indexed(k):
             pad = v.new_zeros(v.shape[:2] + (length - v.shape[2],)
                               + v.shape[3:])
             v = torch.cat([v, pad], dim=2)
         out[k] = v
     return out
+
+
+def init_cache(defs: dict, dtype: torch.dtype, device=None) -> dict:
+    """Zeros of a model's ``cache_defs``: ``pos`` a 0-d int32, an SSM
+    ``state`` in f32 (as a prefill leaves it: a state kept in ``dtype`` is
+    another recurrence), every other entry in ``dtype``; None entries stay
+    None."""
+    out = {}
+    for k, d in defs.items():
+        if d is None:
+            out[k] = None
+            continue
+        dt = {"pos": torch.int32, "state": torch.float32}.get(k, dtype)
+        out[k] = torch.zeros(d.shape, dtype=dt, device=device)
+    return out
+
+
+def build(model_cls, cfg, params, *, dtype=None, device=None):
+    """A ``model_cls(cfg)`` network holding ``params`` (a tree in the
+    reference's layout, the model module's ``param_defs``), on ``device``
+    (default: the card), cast to ``dtype`` if given.  Built for inference:
+    no gradients.  Each model module's ``build`` is this with its class."""
+    dev = device_mod.resolve(device)
+    with torch.device("meta"):
+        model = model_cls(cfg)
+    model.load_state_dict(params_from_jax(params, dtype=dtype, device=dev),
+                          strict=True, assign=True)
+    return model.requires_grad_(False).eval()
+
+
+def _check(params, cfg) -> None:
+    if params.cfg != cfg:
+        raise ValueError(f"the model was built for {params.cfg.name!r}, "
+                         f"not {cfg.name!r}")
+
+
+def forward(params, batch: dict, cfg, **kw):
+    """``params(batch, **kw)`` for a network built for ``cfg``: in
+    inference mode unless its parameters require gradients and autograd is
+    enabled (the trainer's network)."""
+    _check(params, cfg)
+    trains = torch.is_grad_enabled() and params.out.weight.requires_grad
+    with torch.inference_mode(not trains):
+        return params(batch, **kw)
+
+
+def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
+    """``params.decode(cache, tokens)`` in inference mode, for a network
+    built for ``cfg``."""
+    _check(params, cfg)
+    with torch.inference_mode():
+        return params.decode(cache, tokens)
 
 
 def stack_layer_defs(defs: dict, n_layers: int) -> dict:

@@ -1,0 +1,174 @@
+"""Zamba2-style hybrid as an ``nn.Module``: a Mamba2 backbone with ONE
+shared attention + MLP block applied after every complete group of
+``attn_every`` SSM layers (the same weights at every application).
+
+The SSM layers are ``mamba2.SSMBlock``s under ``layers``; the shared block
+is a dense ``transformer.Block`` under ``shared`` (the reference's
+top-level ``shared`` subtree, not a layer stack).  A depth that is no
+multiple of ``attn_every`` ends in an incomplete group that runs after the
+last application (zamba2-1.2b: 38 = 6 x 6 + 2 layers, 6 applications).
+
+Decoding: the prefill cache holds the SSM layers' ``conv`` and ``state``
+(layer-stacked over all groups, as in ``mamba2``) and one KV cache per
+application, ``k``/``v`` ``(n_applications, B, S, Hkv, hd)``.  A decode
+step advances the SSM layers in place, attends each application's OLD KV
+cache plus its own new key and value (``layers.attn_decode``), and writes
+the new keys and values once, after the layers (``layers.update_cache``).
+The KV caches must have room: ``common.grow_cache`` or
+``common.init_cache`` over :func:`cache_defs`.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import common, mamba2, transformer
+from repro_torch.models.layers import (attn_chunked, attn_decode, attn_full,
+                                       gated_mlp, rms_norm, rope_tables,
+                                       update_cache)
+from repro_torch.models.params import ParamDef
+from repro_torch.models.transformer import FULL_ATTN_MAX
+
+
+def n_applications(cfg) -> int:
+    return cfg.n_layers // cfg.attn_every
+
+
+def param_defs(cfg, tp: int = 1) -> dict:
+    return {
+        **common.embed_defs(cfg),
+        "layers": common.stack_layer_defs(mamba2.block_defs(cfg, tp),
+                                          cfg.n_layers),
+        "shared": transformer.block_defs(cfg, tp),   # ONE shared block
+    }
+
+
+def _groups(cfg):
+    """``(first layer, end layer, complete)`` for each group of
+    ``attn_every`` SSM layers; the shared block runs after each complete
+    one."""
+    k, n = cfg.attn_every, cfg.n_layers
+    return [(s, min(s + k, n), min(s + k, n) - s == k)
+            for s in range(0, n, k)]
+
+
+def _shared_block(p: transformer.Block, h, cfg, cos, sin, kc=None, vc=None,
+                  pos=None):
+    """The shared attention + MLP block (transformer semantics); with a KV
+    cache one decode step against it.  Returns ``(h, (k, v))``, the keys
+    and values of ``h``'s positions."""
+    x = rms_norm(h, p.ln1)
+    q, k, v = transformer._qkv(p, x, cfg, cos, sin)
+    g = transformer._group(cfg)
+    if kc is not None:
+        o = attn_decode(q, kc, vc, pos, k_new=k, v_new=v, group_size=g)
+    elif h.shape[1] <= FULL_ATTN_MAX:
+        o = attn_full(q, k, v, group_size=g)
+    else:
+        o = attn_chunked(q, k, v, q_chunk=cfg.attn_chunk,
+                         kv_chunk=cfg.attn_chunk, group_size=g)
+    h = h + transformer._attn_out(p, o)
+    x = rms_norm(h, p.ln2)
+    h = h + gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight)
+    return h, (k, v)
+
+
+class HybridModel(nn.Module):
+    """Embedding, the SSM layers, the shared block, final norm and head."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        V, d = cfg.vocab_padded(), cfg.d_model
+        self.tok = nn.Embedding(V, d)
+        self.out = nn.Linear(d, V, bias=False)
+        self.final_norm = nn.Parameter(torch.empty(d))
+        self.layers = nn.ModuleList(mamba2.SSMBlock(cfg)
+                                    for _ in range(cfg.n_layers))
+        self.shared = transformer.Block(cfg)
+
+    def forward(self, batch: dict, return_hidden: bool = False,
+                return_cache: bool = False):
+        cfg = self.cfg
+        h = common.embed_tokens(self, batch["tokens"])
+        h = common.maybe_prepend_embeds(h, batch)
+        S = h.shape[1]
+        cos, sin = rope_tables(torch.arange(S, device=h.device)[None, :],
+                               cfg.head_dim, cfg.rope_theta)
+        remat = (cfg.remat == "block") and not return_cache
+        fn = mamba2._ssm_fn(cfg, return_cache)
+        ssm, kvs = [], []
+        for g0, g1, complete in _groups(cfg):
+            h, _, ys = common.scan_blocks(fn, h, self.layers[g0:g1],
+                                          remat=remat)
+            ssm.append(ys)
+            if complete:
+                h, kv = _shared_block(self.shared, h, cfg, cos, sin)
+                kvs.append(kv)
+        if return_hidden:
+            return h
+        logits = common.unembed(self, h)
+        if not return_cache:
+            return logits
+        return logits, {
+            "conv": torch.cat([c for c, _ in ssm]),
+            "state": torch.cat([s for _, s in ssm]),
+            "k": torch.stack([k for k, _ in kvs]),
+            "v": torch.stack([v for _, v in kvs]),
+            "pos": torch.full((), S - 1, dtype=torch.int32, device=h.device)}
+
+    def decode(self, cache: dict, tokens: torch.Tensor):
+        cfg = self.cfg
+        B = tokens.shape[0]
+        h = common.embed_tokens(self, tokens)
+        pos = cache["pos"] + 1                   # position of the new token
+        cos, sin = rope_tables(pos.expand(B, 1), cfg.head_dim,
+                               cfg.rope_theta)
+        ks, vs = [], []
+        for g0, g1, complete in _groups(cfg):
+            h = mamba2.decode_layers(self.layers[g0:g1], h, cache, cfg, g0)
+            if complete:
+                app = len(ks)
+                h, (k, v) = _shared_block(self.shared, h, cfg, cos, sin,
+                                          cache["k"][app], cache["v"][app],
+                                          pos)
+                ks.append(k)
+                vs.append(v)
+        kc = update_cache(cache["k"], torch.stack(ks), pos, seq_axis=2)
+        vc = update_cache(cache["v"], torch.stack(vs), pos, seq_axis=2)
+        return common.unembed(self, h), {**cache, "k": kc, "v": vc,
+                                         "pos": pos}
+
+
+def cache_defs(cfg, B: int, S: int) -> dict:
+    """Shapes of a decode cache for ``B`` sequences of up to ``S`` tokens
+    (the reference's): mamba2's conv windows and states, and a KV cache
+    per application of the shared block."""
+    defs = mamba2.cache_defs(cfg, B, S)
+    kv = ParamDef((n_applications(cfg), B, S, cfg.n_kv_heads, cfg.head_dim),
+                  (None, "batch", "kv_seq", None, None), init="zeros")
+    return {**defs, "k": kv, "v": kv}
+
+
+def build(cfg, params, *, dtype=None, device=None) -> HybridModel:
+    """A :class:`HybridModel` holding ``params`` (a tree in the reference's
+    layout, see :func:`param_defs`), on ``device`` (default: the card),
+    cast to ``dtype`` if given.  Built for inference: no gradients."""
+    return common.build(HybridModel, cfg, params, dtype=dtype, device=device)
+
+
+def forward(params: HybridModel, batch: dict, cfg,
+            return_cache: bool = False, return_hidden: bool = False):
+    """The reference's ``forward(params, batch, cfg)``: logits, hidden
+    states before the final norm, or with ``return_cache`` the logits and
+    the prefill cache (``conv``, ``state``, ``k``, ``v``, ``pos``)."""
+    return common.forward(params, batch, cfg, return_hidden=return_hidden,
+                          return_cache=return_cache)
+
+
+def decode_step(params: HybridModel, cache: dict, tokens: torch.Tensor, cfg):
+    """One decode step: ``tokens`` (B, 1) at position ``cache["pos"] + 1``
+    -> ``(logits (B, 1, V), cache)``; every cache entry is updated in place
+    and returned with the new ``pos``."""
+    return common.decode_step(params, cache, tokens, cfg)

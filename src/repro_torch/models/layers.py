@@ -21,8 +21,11 @@ The MoE layer is the reference's token-choice top-k router
 
 The reference's sharding context (``Ctx``) and its ``shard_map`` branches
 (the sharded cache write, expert parallelism) have no counterpart on one
-card: the port runs the reference's no-mesh branch.  SSD and convolution
-helpers come with their models.
+card: the port runs the reference's no-mesh branch.
+
+Mamba2's pieces close the file: the depthwise causal convolution
+(:func:`causal_conv1d`, with its streaming cache), the chunked SSD scan
+(:func:`ssd_chunked`) and its one-step recurrence (:func:`ssd_step`).
 """
 
 from __future__ import annotations
@@ -322,3 +325,114 @@ def moe_block(p, x: torch.Tensor, cfg):
         sh = p.shared
         out = out + gated_mlp(x, sh.wg.weight, sh.wu.weight, sh.wd.weight)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD): chunked scan, single-step recurrence, causal convolution
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+                chunk: int):
+    """Chunked state-space-duality scan (Mamba2).
+
+    x ``(B,S,H,P)``, dt ``(B,S,H)`` (post-softplus, f32), A ``(H,)``
+    (negative), Bm/Cm ``(B,S,G,N)``, D ``(H,)``; ``S`` a multiple of
+    ``min(chunk, S)``.  Returns y ``(B,S,H,P)`` in x's dtype and the final
+    state ``(B,H,P,N)`` in f32.  Head ``h`` reads group ``h // (H // G)``
+    (the reference's ``repeat``), contracted here per group without
+    repeating B and C.
+
+    The within-chunk decay ``exp(cum_t - cum_s)`` is taken of ``-inf``
+    above the diagonal (``s > t``), where the reference exponentiates the
+    positive difference and discards it afterwards: at a chunk of 128 that
+    difference passes 88.7 and overflows f32, and the discarded branch's
+    zero cotangent times ``inf`` makes the reference's gradient NaN.  The
+    forward values are the same."""
+    Bsz, S, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {c}")
+    nc = S // c
+    f32 = torch.float32
+    xs = x.reshape(Bsz, nc, c, H, Pd)
+    dts = dt.reshape(Bsz, nc, c, H)
+    Bs = Bm.reshape(Bsz, nc, c, G, N)
+    Cs = Cm.reshape(Bsz, nc, c, G, N)
+
+    dA = dts * A                                     # (B,k,c,H) negative
+    cum = torch.cumsum(dA, dim=2)                    # within-chunk cumsum
+    seg_end = cum[:, :, -1, :]                       # total chunk decay
+
+    # intra-chunk (quadratic in c): y[t] = sum_{s<=t} C_t.B_s decay x_s dt_s
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,k,c,s,H)
+    tri = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                  float("-inf")))
+    cb = torch.einsum("bkcgn,bksgn->bkgcs", Cs, Bs).to(f32)
+    att = cb[:, :, :, None] * decay.permute(0, 1, 4, 2, 3).reshape(
+        Bsz, nc, G, rep, c, c)                        # (B,k,G,r,c,s)
+    xdt = (xs * dts[..., None]).to(f32).reshape(Bsz, nc, c, G, rep, Pd)
+    y_intra = torch.einsum("bkgrcs,bksgrp->bkcgrp", att, xdt)
+
+    # contribution of each chunk to its own end state
+    decay_to_end = torch.exp(seg_end[:, :, None, :] - cum)   # (B,k,c,H)
+    state_in = torch.einsum(
+        "bkcgn,bkcgrp->bkgrpn", Bs.to(f32),
+        xdt * decay_to_end.reshape(Bsz, nc, c, G, rep)[..., None])
+
+    # inter-chunk recurrence over chunks (the reference's lax.scan)
+    h = torch.zeros((Bsz, G, rep, Pd, N), dtype=f32, device=x.device)
+    prev = []
+    for k in range(nc):
+        prev.append(h)
+        h = h * torch.exp(seg_end[:, k]).reshape(Bsz, G, rep, 1, 1) \
+            + state_in[:, k]
+    h_prev = torch.stack(prev, dim=1)                 # (B,k,G,r,P,N)
+
+    # inter-chunk output: C_t . (decay from the chunk's start) . h_prev
+    y_inter = torch.einsum("bkcgn,bkgrpn->bkcgrp", Cs.to(f32), h_prev) \
+        * torch.exp(cum).reshape(Bsz, nc, c, G, rep)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, S, H, Pd)
+    y = y + x.to(f32) * D[None, None, :, None]
+    return y.to(x.dtype), h.reshape(Bsz, H, Pd, N)
+
+
+def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+             h: torch.Tensor):
+    """One decode step of the recurrence: x ``(B,H,P)``, dt ``(B,H)`` f32,
+    Bm/Cm ``(B,G,N)``, state h ``(B,H,P,N)``.  Returns y ``(B,H,P)`` in x's
+    dtype and the new state (f32 for an f32 state); y contracts C with the
+    new state cast to C's dtype, as the reference does."""
+    rep = x.shape[1] // Bm.shape[1]
+    Bs = Bm.repeat_interleave(rep, dim=1)             # (B,H,N)
+    Cs = Cm.repeat_interleave(rep, dim=1)
+    dA = torch.exp(dt * A[None, :])[..., None, None]  # (B,H,1,1)
+    xdt = x * dt[..., None]
+    upd = torch.einsum("bhn,bhp->bhpn", Bs.to(xdt.dtype), xdt)
+    h_new = h * dA + upd
+    y = torch.einsum("bhn,bhpn->bhp", Cs, h_new.to(Cs.dtype))
+    y = y + x * D[None, :, None]
+    return y.to(x.dtype), h_new
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  cache: Optional[torch.Tensor] = None):
+    """Depthwise causal convolution: x ``(B,S,C)``, w ``(K,C)``; SiLU in
+    f32, cast back to x's dtype.  With a cache ``(B,K-1,C)`` (the last
+    ``K-1`` inputs) it is the streaming update.  Returns ``(y, new
+    cache)``."""
+    K = w.shape[0]
+    if cache is None:
+        pad = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        pad = torch.cat([cache, x], dim=1)
+    S = x.shape[1]
+    out = pad[:, 0:S, :] * w[0]
+    for i in range(1, K):
+        out = out + pad[:, i:i + S, :] * w[i]
+    new_cache = pad[:, pad.shape[1] - (K - 1):, :]
+    return F.silu(out.to(torch.float32)).to(x.dtype), new_cache

@@ -31,13 +31,12 @@ import math
 import torch
 from torch import nn
 
-from repro_torch import device as device_mod
 from repro_torch.models import common
 from repro_torch.models.layers import (apply_rope, attn_chunked, attn_full,
                                        gated_mlp, moe_block, rms_norm,
                                        rope_tables, softmax_with_self,
                                        update_cache)
-from repro_torch.models.params import ParamDef, params_from_jax
+from repro_torch.models.params import ParamDef
 from repro_torch.models.transformer import FULL_ATTN_MAX
 
 
@@ -358,18 +357,7 @@ def build(cfg, params, *, dtype=None, device=None) -> MoEModel:
     """A :class:`MoEModel` holding ``params`` (a tree in the reference's
     layout, see :func:`param_defs`), on ``device`` (default: the card),
     cast to ``dtype`` if given.  Built for inference: no gradients."""
-    dev = device_mod.resolve(device)
-    with torch.device("meta"):
-        model = MoEModel(cfg)
-    model.load_state_dict(params_from_jax(params, dtype=dtype, device=dev),
-                          strict=True, assign=True)
-    return model.requires_grad_(False).eval()
-
-
-def _check(params, cfg) -> None:
-    if params.cfg != cfg:
-        raise ValueError(f"the model was built for {params.cfg.name!r}, "
-                         f"not {cfg.name!r}")
+    return common.build(MoEModel, cfg, params, dtype=dtype, device=device)
 
 
 def forward(params: MoEModel, batch: dict, cfg, return_cache: bool = False,
@@ -380,17 +368,12 @@ def forward(params: MoEModel, batch: dict, cfg, return_cache: bool = False,
     1``); with ``return_hidden`` the hidden states before the final norm.
     Inference mode unless the parameters require gradients and autograd is
     enabled (the trainer's network)."""
-    _check(params, cfg)
-    trains = torch.is_grad_enabled() and params.out.weight.requires_grad
-    with torch.inference_mode(not trains):
-        return params(batch, return_hidden=return_hidden,
-                      return_cache=return_cache)
+    return common.forward(params, batch, cfg, return_hidden=return_hidden,
+                          return_cache=return_cache)
 
 
 def decode_step(params: MoEModel, cache: dict, tokens: torch.Tensor, cfg):
     """One absorbed-MLA decode step: ``tokens`` (B, 1) at position
     ``cache["pos"] + 1`` -> ``(logits (B, 1, V), cache)``; the latent caches
     are updated in place and returned with the new ``pos``."""
-    _check(params, cfg)
-    with torch.inference_mode():
-        return params.decode(cache, tokens)
+    return common.decode_step(params, cache, tokens, cfg)

@@ -6,8 +6,10 @@ Models declare their parameters once as a tree (nested dicts) of
 ``(in, out)`` with heads split out (``wq (d, H, hd)``, ``wo (H, hd, d)``),
 and a leading layers axis on every block parameter of a layer stack
 (``common.stack_layer_defs``; the stacks are :data:`STACKS`: ``layers`` of
-the dense transformer, ``dense_layers`` and ``moe_layers`` of the MoE
-model).  From that tree
+the dense transformer, Mamba2 and the hybrid, ``dense_layers`` and
+``moe_layers`` of the MoE model).  A subtree that is no stack, such as the
+hybrid's one ``shared`` block, maps to a submodule of that name.  From
+that tree
 
 * :func:`init_params` materialises tensors in that layout, from an explicit
   ``torch.Generator`` (the fan-in rule of the reference);
@@ -18,7 +20,8 @@ model).  From that tree
   axis split into one block per layer, projection weights in
   ``nn.Linear``'s ``(out, in)`` layout, and the MoE expert stacks
   (``w_gate``, ``w_up``, ``w_down``, ``(E, in, out)``) kept as stacked
-  tensors in the reference's layout;
+  tensors in the reference's layout (as is Mamba2's ``conv_w``,
+  ``(K, C)``, one per layer);
 * :func:`params_to_jax` is its inverse;
 * :func:`port_leaves` maps each of the tree's leaves to the port's tensors
   (the reference's leaf order, which the optimizer keeps), and
@@ -114,7 +117,8 @@ STACKS = ("layers", "dense_layers", "moe_layers")
 #: a latent in and give heads out)
 _LINEAR_IN_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "wg": 1, "wu": 1,
                    "wd": 1, "out": 1, "wdq": 1, "wuq": 1, "wdkv": 1,
-                   "wkr": 1, "wuk": 1, "wuv": 1, "router": 1}
+                   "wkr": 1, "wuk": 1, "wuv": 1, "router": 1, "w_in": 1,
+                   "w_out": 1}
 #: per-head biases -> the bias of their projection
 _BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv"}
 
@@ -191,9 +195,10 @@ def decay_mask(defs) -> Dict[str, bool]:
 
     The reference decays every leaf of its tree with ``ndim >= 2``
     (``train/optimizer.py``), and its tree stacks the layers, so every
-    per-layer leaf is decayed (norms, QKV biases, routers, expert stacks and
-    the shared experts included), and of the top-level leaves all but
-    ``final_norm``.  The rule is read from the
+    per-layer leaf is decayed (norms, QKV biases, routers, expert stacks,
+    the shared experts and Mamba2's ``A_log``, ``D`` and ``dt_bias``
+    included), and of the top-level leaves all but ``final_norm`` and the
+    hybrid's shared block's norms.  The rule is read from the
     reference's shapes (``defs``), never from the port tensor's ``ndim``:
     a port block's norm is 1-D, its stacked counterpart 2-D."""
     return {n: len(d.shape) >= 2

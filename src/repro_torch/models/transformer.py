@@ -32,12 +32,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch import device as device_mod
 from repro_torch.models import common
 from repro_torch.models.layers import (apply_rope, attn_chunked, attn_decode,
                                        attn_full, gated_mlp, rms_norm,
                                        rope_tables, update_cache)
-from repro_torch.models.params import ParamDef, params_from_jax
+from repro_torch.models.params import ParamDef
 
 #: longest sequence attended with materialised scores (the reference's
 #: ``use_full`` switch); longer ones take the chunked online softmax
@@ -205,18 +204,7 @@ def build(cfg, params, *, dtype=None, device=None) -> Transformer:
     """A :class:`Transformer` holding ``params`` (a tree in the reference's
     layout, see :func:`param_defs`), on ``device`` (default: the card),
     cast to ``dtype`` if given.  Built for inference: no gradients."""
-    dev = device_mod.resolve(device)
-    with torch.device("meta"):
-        model = Transformer(cfg)
-    model.load_state_dict(params_from_jax(params, dtype=dtype, device=dev),
-                          strict=True, assign=True)
-    return model.requires_grad_(False).eval()
-
-
-def _check(params, cfg) -> None:
-    if params.cfg != cfg:
-        raise ValueError(f"the model was built for {params.cfg.name!r}, "
-                         f"not {cfg.name!r}")
+    return common.build(Transformer, cfg, params, dtype=dtype, device=device)
 
 
 def forward(params: Transformer, batch: dict, cfg,
@@ -229,11 +217,8 @@ def forward(params: Transformer, batch: dict, cfg,
     A network built by :func:`build` runs in inference mode; one whose
     parameters require gradients (the trainer's) is differentiated through
     while autograd is enabled."""
-    _check(params, cfg)
-    trains = torch.is_grad_enabled() and params.out.weight.requires_grad
-    with torch.inference_mode(not trains):
-        return params(batch, return_hidden=return_hidden,
-                      return_cache=return_cache)
+    return common.forward(params, batch, cfg, return_hidden=return_hidden,
+                          return_cache=return_cache)
 
 
 def cache_defs(cfg, B: int, S: int) -> dict:
@@ -255,6 +240,4 @@ def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor, cfg):
     """One decode step: ``tokens`` (B, 1) at position ``cache["pos"] + 1``
     -> ``(logits (B, 1, V), cache)``; the cache's ``k``/``v`` are updated in
     place and returned with the new ``pos``."""
-    _check(params, cfg)
-    with torch.inference_mode():
-        return params.decode(cache, tokens)
+    return common.decode_step(params, cache, tokens, cfg)

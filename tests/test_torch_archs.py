@@ -1,6 +1,7 @@
 """Every architecture of the reference in the port: the registry, the
 configs and ``SHAPES``, full-config parameter counts through ``meta``
-tensors, the published sizes, and the training CLI's ``--arch``.
+tensors, the published sizes, the ``long_500k`` rule, and the training
+CLI's ``--arch``.
 
 Counts and configs are compared exactly.
 """
@@ -23,14 +24,10 @@ from repro_torch.models.params import abstract_params, param_count  # noqa: E402
 
 @pytest.mark.parametrize("arch", sorted(ref_registry.ARCHS))
 def test_full_config_param_count_matches_reference(arch):
-    """Every architecture: ported ones count their full config's parameters
+    """Every architecture is ported and counts its full config's parameters
     exactly as the reference does, through ``meta`` tensors (nothing is
-    allocated, kimi-k2's trillion included); the others raise naming their
-    ROADMAP item."""
-    if arch in registry.UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            registry.get(arch)
-        return
+    allocated, kimi-k2's trillion included)."""
+    assert arch in registry.ARCHS
     cfg, mod = registry.get(arch)
     rcfg, rmod = ref_registry.get(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
@@ -57,12 +54,14 @@ def _flat_leaves(tree, prefix=()):
     ("qwen2.5-32b", 32.8, 0.08),
     ("qwen3-4b", 4.0, 0.15),
     ("smollm-360m", 0.362, 0.15),
+    ("mamba2-370m", 0.37, 0.20),
+    ("zamba2-1.2b", 1.2, 0.25),
     ("deepseek-v2-236b", 236.0, 0.08),
     ("kimi-k2-1t-a32b", 1026.0, 0.10),
 ])
 def test_param_count_matches_published(arch, published_b, tol):
-    """``tests/test_models_smoke.py``'s published sizes, for the ported
-    architectures."""
+    """``tests/test_models_smoke.py``'s published sizes, every one of
+    them."""
     cfg, mod = registry.get(arch)
     n = param_count(mod.param_defs(cfg))
     assert abs(n / 1e9 - published_b) / published_b < tol
@@ -72,14 +71,26 @@ def test_shapes_and_registry_match_reference():
     assert base.SHAPES.keys() == ref_base.SHAPES.keys()
     for k, v in base.SHAPES.items():
         assert dataclasses.asdict(v) == dataclasses.asdict(ref_base.SHAPES[k])
-    assert sorted(registry.names() + list(registry.UNPORTED)) \
-        == ref_registry.names()
-    assert set(registry.UNPORTED) == {"mamba2-370m", "zamba2-1.2b"}
+    assert registry.names() == ref_registry.names()
+    assert len(registry.names()) == 10
     for arch in registry.names():
         for reduced in (False, True):
             cfg, _ = registry.get(arch, reduced=reduced)
             rcfg, _ = ref_registry.get(arch, reduced=reduced)
             assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+
+
+def test_long_context_cells_require_sub_quadratic():
+    """``tests/test_models_smoke.py``'s rule (``launch/dryrun.py``'s
+    ``runnable``): ``long_500k`` runs only the sub-quadratic architectures,
+    exactly Mamba2 and the hybrid, in both packages."""
+    runnable = [a for a in registry.names()
+                if registry.get(a)[0].sub_quadratic]
+    assert runnable == ["mamba2-370m", "zamba2-1.2b"]
+    assert runnable == [a for a in ref_registry.names()
+                        if ref_registry.get(a)[0].sub_quadratic]
+    assert base.SHAPES["long_500k"].seq_len == 524_288
+    assert base.SHAPES["long_500k"].kind == "decode"
 
 
 @pytest.mark.parametrize("arch", sorted(registry.ARCHS))

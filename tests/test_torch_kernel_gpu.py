@@ -280,3 +280,35 @@ def test_comparison_indexes_on_the_card_match_the_cpu(cuda_device):
     assert hits == ref.range_query(data[17], 3.0) and 17 in hits
     assert (ct.counter.count, ct.counter.build_count) == \
         (ref.counter.count, ref.counter.build_count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_recurrent_decode_matches_forward_on_the_card(cuda_device, arch):
+    """Reduced Mamba2 and the hybrid in f32 on the card, seeded weights:
+    a decode step after a prefill of S-1 tokens (the prefill padded to a
+    chunk multiple) gives ``forward``'s logits at S-1, within the
+    reference's ``rtol = 2e-2, atol = 2e-3``; neither hand-written kernel
+    is launched."""
+    from repro_torch.models import registry
+    from repro_torch.models.common import grow_cache
+    from repro_torch.models.params import init_params
+    cfg, mod = registry.get(arch, reduced=True)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    model = mod.build(cfg, init_params(mod.param_defs(cfg), gen,
+                                       torch.float32, cuda_device),
+                      device=cuda_device)
+    S = 21
+    tokens = torch.randint(0, cfg.vocab, (2, S), generator=gen,
+                           device=cuda_device)
+    before = (wf.LAUNCHES, pl2.LAUNCHES)
+    logits = mod.forward(model, {"tokens": tokens}, cfg)
+    _, cache = mod.forward(model, {"tokens": tokens[:, :S - 1]}, cfg,
+                           return_cache=True)
+    assert cache["state"].dtype == torch.float32
+    lg, cache = mod.decode_step(model, grow_cache(cache, S + 4),
+                                tokens[:, S - 1:], cfg)
+    torch.testing.assert_close(lg[:, 0], logits[:, S - 1], rtol=2e-2,
+                               atol=2e-3)
+    assert int(cache["pos"]) == S - 1
+    assert (wf.LAUNCHES, pl2.LAUNCHES) == before
