@@ -60,7 +60,16 @@ version on the card.  Then it drives the port's two paths:
   CLI, zamba2 through its ``Trainer``: finite gradients, a falling loss),
   and mamba2's embedding path: its pooled hidden states (``d = 1024``)
   indexed, range hits held to the exact ``pairwise_l2`` matrix (one
-  launch, counted from zero) and, at a cut size, to the numpy backend.
+  launch, counted from zero) and, at a cut size, to the numpy backend;
+* the tooling (phase 14): three cells one card holds, smollm-360m
+  ``train_4k`` (batch 2, f32), qwen3-4b ``decode_32k`` (batch 4, a seeded
+  cache of 32,768 positions) and mamba2-370m ``long_500k``, each run for
+  one timed step at the shape of its ``launch/dryrun`` record (counted on
+  ``meta`` by a worker process while phases 12-13 run): the flops counted
+  on the card equal to the record's, the peak memory at least its
+  argument bytes, with the roofline terms and MFU of
+  ``roofline/report``.  Both kernels' bounds in the timing lines come
+  from ``repro_torch.roofline.costs``.
 
 Levenshtein token ids over all of int32 (``2**24`` and up, where f32
 rounds ids together) are held to the numpy backend through the counter
@@ -95,10 +104,6 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-
-#: H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 #: tolerance of the kernel against its plain version (float modes): the
 #: two share every operation and its order, so differences are at most a
@@ -223,64 +228,6 @@ def operands(mode, xs, ys, lx, ly, dev):
         return [lev_operand(xs, dev), lev_operand(ys, dev), lens]
     return [torch.as_tensor(xs, device=dev, dtype=torch.float32),
             torch.as_tensor(ys, device=dev, dtype=torch.float32), lens]
-
-
-#: H100 SXM: operations that are not fused multiply-adds (adds, mins,
-#: compares, abs) issue at most once per lane per clock: 132 SMs x 128 lanes
-#: x 1.98 GHz (boost clock).  PEAK_F32_FLOPS counts an FMA as two.
-PEAK_F32_OPS = 132 * 128 * 1.98e9
-
-
-def bound(mode, xs, ys, lx, ly, eps):
-    """(bound_ms, bound_by, old_ms): the larger of the bytes the alignment
-    function must move over HBM rate and the operations its cells need over
-    the card's rate for them.  Bytes: x and y at the dispatch's widths (f32
-    tokens or series), the two lengths (int32), eps (f32), each read once,
-    and dist (f32), hit and pruned (bool) written once.  Operations, per
-    cell of each row's own ``len_x x len_y`` (those the function cannot do
-    without on any input):
-
-    * cost: lev one compare of two tokens; float modes d subtracts,
-      d multiplies, d - 1 adds, the sqrt and its BIG clamp (the max with 0
-      of a sum of squares changes nothing);
-    * combine: dtw and dfd 3 (two mins and an add or max), erp 5 (three
-      adds, two mins), lev 4 (min(du + 1, dl + 1) == min(du, dl) + 1: an
-      add and a min are enough for the two);
-    * the BIG clamp of the sum: dtw and erp 1; dfd and lev 0 (no operand
-      exceeds BIG, and BIG + 1 rounds to BIG);
-    * the certificate, on rows with finite eps only (+inf rows can never
-      be pruned): 1, a running minimum of the new diagonal (the previous
-      diagonal's minimum is carried);
-
-    and for erp per element of the row's own lengths its gap (d multiplies,
-    d - 1 adds, sqrt, clamp) and border sum (an add and a clamp).  None is a
-    fused multiply-add, so they count against PEAK_F32_OPS.  ``old_ms`` is
-    the figure earlier versions of this script printed: their count (lev
-    cost 3 ops, float cost 3d + 2, the clamp in every mode and two for the
-    certificate on every row) over PEAK_F32_FLOPS, which counts each of
-    these operations as half an FMA."""
-    import numpy as np
-    B = xs.shape[0]
-    d = 1 if mode == "lev" else xs.shape[2]
-    nbytes = 4 * (xs.size + ys.size) + B * (2 * 4 + 4) + B * (4 + 1 + 1)
-    lx = np.asarray(lx, np.float64)
-    ly = np.asarray(ly, np.float64)
-    finite = np.isfinite(np.asarray(eps, np.float64))
-    cost = 1 if mode == "lev" else 3 * d + 1
-    comb = {"dtw": 3, "dfd": 3, "erp": 5, "lev": 4}[mode]
-    clamp = 1 if mode in ("dtw", "erp") else 0
-    cells = float(np.sum(lx * ly))
-    ops = cells * (cost + comb + clamp) + float(np.sum((lx * ly)[finite]))
-    if mode == "erp":
-        ops += float(np.sum(lx + ly)) * (2 * d + 3)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32_OPS * 1e3
-    old_ops = cells * ((3 * d if mode == "lev" else 3 * d + 2)
-                       + (3 if mode in ("dtw", "dfd") else 5) + 1 + 2)
-    old = max(t_bytes, old_ops / PEAK_F32_FLOPS * 1e3)
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", old
-    return t_ops, "operations", old
 
 
 # -- phase 3: kernel against its plain version ---------------------------------
@@ -670,18 +617,11 @@ def time_ms(torch, fn, min_ms=50.0, max_iters=200) -> float:
     return a.elapsed_time(b) / iters
 
 
-def wavefront_smem(build, mode, Lx, Ly, d):
-    """(dynamic shared memory bytes of one block, rows per block; 0 rows:
-    one block per row) that the wavefront launcher chooses."""
-    import ctypes
-    rows = ctypes.c_int(0)
-    nbytes = build.load("wavefront").wavefront_smem_bytes(
-        MODES.index(mode), Lx, Ly, d, ctypes.byref(rows))
-    return nbytes, rows.value
-
-
-def phase_timing(torch, wf, build, rng, dev, sizes) -> list:
+def phase_timing(torch, wf, rng, dev, sizes) -> list:
+    """Both kernels' bounds come from ``repro_torch.roofline.costs``: the
+    operations and bytes the function needs at the timed shapes."""
     import numpy as np
+    from repro_torch.roofline import costs
     t0 = time.perf_counter()
     print("[timing] ms is all device work of a dispatch: the kernel reads the "
           "rows as the dispatch hands them (no padded layout is built "
@@ -706,9 +646,10 @@ def phase_timing(torch, wf, build, rng, dev, sizes) -> list:
         ms = time_ms(torch, lambda: wf.wavefront_cuda(*ops, eps, mode=mode))
         plain = time_ms(torch, lambda: wf.wavefront_torch(
             *ops, eps, mode=mode), min_ms=500.0, max_iters=20)
-        b_ms, by, old = bound(mode, xs, ys, lx, ly, eps.cpu().numpy())
-        smem, per_block = wavefront_smem(build, mode, xs.shape[1],
-                                         ys.shape[1], d)
+        cost = costs.kernel_cost_report("wavefront", *ops, eps, mode=mode)
+        b_ms, by, old = (cost["bound_ms"], cost["bound_by"],
+                         cost["old_bound_ms"])
+        smem, per_block = wf.smem_bytes(mode, xs.shape[1], ys.shape[1], d)
         log("timing", mode=mode, rows=B, rows_per_block=per_block,
             smem_bytes=smem,
             shape=f"{xs.shape[1]}x{ys.shape[1]}x{d}", what=repr(what),
@@ -964,29 +905,8 @@ def phase_embedding(torch, pl2, args, dev) -> dict:
 
 # -- phase 6b: pairwise_l2 timing ---------------------------------------------
 
-#: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
-PEAK_TF32_FLOPS = 495e12
-
-
-def l2_bound(M, N, d):
-    """(bound_ms, bound_by, f32_ms): the least time for the f32-accurate
-    function.  Operations: the three TF32 products of the 3xTF32 split,
-    3 x 2MNd, over the tensor-core peak, plus the norms (2(M+N)d, a
-    multiply and an add per element) and the epilogue (5MN) over the f32
-    peak; bytes: x and y read once and D written once over HBM rate.
-    ``f32_ms`` is the bound of an f32 kernel, every operation over the f32
-    peak."""
-    t_ops = (6.0 * M * N * d / PEAK_TF32_FLOPS
-             + (2.0 * (M + N) * d + 5.0 * M * N) / PEAK_F32_FLOPS) * 1e3
-    t_bytes = 4.0 * ((M + N) * d + M * N) / PEAK_BYTES * 1e3
-    f32 = max(t_bytes, (2.0 * M * N * d + 2.0 * (M + N) * d + 5.0 * M * N)
-              / PEAK_F32_FLOPS * 1e3)
-    if t_ops >= t_bytes:
-        return t_ops, "operations", f32
-    return t_bytes, "bytes", f32
-
-
 def phase_l2_timing(torch, pl2, build, dev, main_x, main_y) -> list:
+    from repro_torch.roofline import costs
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(5)
     shapes = [("main path: probes x windows", main_x, main_y),
@@ -1002,7 +922,9 @@ def phase_l2_timing(torch, pl2, build, dev, main_x, main_y) -> list:
         lib2 = time_ms(torch, lambda: torch.cdist(
             x, y, compute_mode="use_mm_for_euclid_dist"))
         lib = min(lib, lib2)  # library timed before and after the kernel
-        b_ms, by, f32 = l2_bound(M, N, d)
+        cost = costs.kernel_cost_report("pairwise_l2", x, y)
+        b_ms, by, f32 = (cost["bound_ms"], cost["bound_by"],
+                         cost["f32_bound_ms"])
         plan = (pl2.LAST_PLAN["loader"] == "tma") | (
             2 * (pl2.LAST_PLAN["tile"] == "128x128"))
         log("l2-timing", what=repr(what), shape=f"{M}x{N}x{d}",
@@ -2127,16 +2049,6 @@ def profile_step(torch, fn, spans=()) -> tuple:
     return dev_us / 1e3, n, wall, {k: v / 1e3 for k, v in span_us.items()}
 
 
-def step_bound_ms(model, cache_b: int) -> tuple:
-    """The least time of one decode step on this card: the bytes it must
-    read, every parameter but the token table (a step gathers B of its
-    rows) and the cache, over the HBM rate.  Returns (bound ms, weight
-    bytes)."""
-    w = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
-            if n != "tok.weight")
-    return (w + cache_b) / PEAK_BYTES * 1e3, w
-
-
 def kept_oracle(idx, E: int, capacity: int) -> set:
     """Token-major first-come ranks in plain Python: assignment ``(t, e)``
     is kept while expert ``e`` has fewer than ``capacity`` earlier ones."""
@@ -2260,6 +2172,7 @@ def phase_decode(torch, wf, pl2, args, dev) -> dict:
     import gc
     import numpy as np
     from repro_torch.models import registry as models
+    from repro_torch.roofline import costs
     t_phase = time.perf_counter()
     rng = np.random.default_rng(12)
     wf.LAUNCHES = pl2.LAUNCHES = 0
@@ -2294,7 +2207,8 @@ def phase_decode(torch, wf, pl2, args, dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     pre_s, grow_s, dec_s, cb, busy = timed_decode(torch, mod, model, cfg, B,
                                                   P, steps, dev, rng)
-    bound, wbytes = step_bound_ms(model, cb)
+    nbytes, wbytes = costs.decode_step_bytes(model, cb)
+    bound = costs.bytes_ms(nbytes)
     peak = torch.cuda.max_memory_allocated(dev)
     ms = dec_s / steps * 1e3
     log("decode12-qwen3-timed", dtype="bfloat16", batch=B, prompt=P,
@@ -2349,7 +2263,8 @@ def phase_decode(torch, wf, pl2, args, dev) -> dict:
     T = B * P
     balanced = balanced_drop_share(rng, T, cfg.top_k, cfg.n_experts,
                                    route["capacity"][0])
-    bound, wbytes = step_bound_ms(model, cb)
+    nbytes, wbytes = costs.decode_step_bytes(model, cb)
+    bound = costs.bytes_ms(nbytes)
     peak = torch.cuda.max_memory_allocated(dev)
     if max(build_peak, peak) >= 80e9:
         raise AssertionError(f"deepseek-v2 cut: peak memory "
@@ -2410,21 +2325,6 @@ SSM_TRAIN_STEPS, HYBRID_TRAIN_STEPS = 10, 3
 def span_text(span_ms: dict) -> str:
     """``name:ms,...`` of :func:`profile_step`'s spans."""
     return ",".join(f"{k}:{v:.3f}" for k, v in sorted(span_ms.items()))
-
-
-def ssm_step_bound_ms(model, cfg, cache_b: int) -> tuple:
-    """:func:`step_bound_ms` for the SSM families: the hybrid's one shared
-    block is read once per application (at 134 MB in bf16 it does not stay
-    in the 50 MB L2 from one application to the next).  Returns (bound ms,
-    weight bytes as counted)."""
-    from repro_torch.models import hybrid
-    bound, w = step_bound_ms(model, cache_b)
-    if cfg.family != "hybrid":
-        return bound, w
-    shared = sum(p.numel() * p.element_size()
-                 for p in model.shared.parameters())
-    extra = (hybrid.n_applications(cfg) - 1) * shared
-    return bound + extra / PEAK_BYTES * 1e3, w + extra
 
 
 class KVWrites:
@@ -2730,6 +2630,7 @@ def phase_ssm(torch, wf, pl2, args, dev) -> dict:
     from repro_torch.configs.base import SHAPES
     from repro_torch.models import hybrid, mamba2
     from repro_torch.models import registry as models
+    from repro_torch.roofline import costs
     t_phase = time.perf_counter()
     rng = np.random.default_rng(13)
     wf.LAUNCHES = pl2.LAUNCHES = 0
@@ -2786,7 +2687,8 @@ def phase_ssm(torch, wf, pl2, args, dev) -> dict:
             spans.append((hybrid, "_shared_block"))
         pre_s, grow_s, dec_s, cb, busy = timed_decode(
             torch, mod, model, cfg, B, P, steps, dev, rng, spans=spans)
-        bound, wbytes = ssm_step_bound_ms(model, cfg, cb)
+        nbytes, wbytes = costs.decode_step_bytes(model, cb)
+        bound = costs.bytes_ms(nbytes)
         peak = torch.cuda.max_memory_allocated(dev)
         ms = dec_s / steps * 1e3
         # one more prefill, traced: the chunked scan's share of it
@@ -2824,7 +2726,8 @@ def phase_ssm(torch, wf, pl2, args, dev) -> dict:
             torch.cuda.reset_peak_memory_stats(dev)
             ms_l, busy_l, cb_l = long_decode(torch, mod, model, cfg, S,
                                              LONG_STEPS, dev, seed=100 + i)
-            bound_l, _ = ssm_step_bound_ms(model, cfg, cb_l)
+            bound_l = costs.bytes_ms(costs.decode_step_bytes(model,
+                                                             cb_l)[0])
             peak_l = torch.cuda.max_memory_allocated(dev)
             log("ssm13-long", arch=arch, shape=long_shape.name, cache_len=S,
                 batch=1, steps=LONG_STEPS, dtype="bfloat16",
@@ -2870,6 +2773,148 @@ def phase_ssm(torch, wf, pl2, args, dev) -> dict:
         embedding_pairwise_l2_launches=out["embedding"]["launches"],
         s=f"{time.perf_counter() - t_phase:.2f}")
     return out
+
+
+# -- phase 14: the tooling on the card ----------------------------------------
+
+#: phase 14's cells, which one card holds: (arch, ``SHAPES`` cell, global
+#: batch, dtype, what is cut).  smollm-360m trains in f32, the port's
+#: trainer's dtype; the decode cells serve in bf16
+TOOLING_CELLS = (
+    ("smollm-360m", "train_4k", 2, "float32", "global batch 256 -> 2"),
+    ("qwen3-4b", "decode_32k", 4, "bfloat16",
+     "batch 128 -> 4; seeded cache of 32,768 positions"),
+    ("mamba2-370m", "long_500k", 1, "bfloat16", "none (batch 1, 524,288 "
+     "positions)"),
+)
+
+
+def tooling_shape(shape_name: str, batch: int):
+    import dataclasses
+    from repro_torch.configs.base import SHAPES
+    return dataclasses.replace(SHAPES[shape_name], global_batch=batch)
+
+
+def tooling_records(pool) -> list:
+    """Futures of the dry-run's ``h100x1`` record of each of
+    :data:`TOOLING_CELLS` (``launch/dryrun.measure``: the step on
+    ``meta``), computed in ``pool``'s worker process while the card runs
+    the phases before 14."""
+    import torch
+    from repro_torch.launch import dryrun
+    return [pool.submit(dryrun.measure, arch, tooling_shape(shape, B),
+                        ("h100x1",), dtype=getattr(torch, dt))
+            for arch, shape, B, dt, _ in TOOLING_CELLS]
+
+
+def seeded_inputs(torch, cfg, mod, shape, model, dtype, dev, seed) -> dict:
+    """The step's inputs on the card, as the dry-run shapes them
+    (``launch/dryrun.abstract_inputs``): token ids and labels drawn from
+    ``[0, vocab)``, the optimizer state of ``model`` (training), or a cache
+    of normal draws with ``pos`` at its second-to-last position, so the
+    step writes the last (decode)."""
+    from repro_torch.launch import dryrun
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def draw(t):
+        if t is None:
+            return None
+        if t.dtype.is_floating_point:
+            return torch.randn(t.shape, generator=g, device=dev,
+                               dtype=t.dtype)
+        return torch.randint(0, cfg.vocab, t.shape, generator=g,
+                             device=dev, dtype=t.dtype)
+    inputs = dryrun.abstract_inputs(cfg, mod, shape, model, dtype)
+    inputs["batch"] = {k: draw(t) for k, t in inputs["batch"].items()}
+    if "cache" in inputs:
+        inputs["cache"] = {k: draw(t) for k, t in inputs["cache"].items()}
+        inputs["cache"]["pos"] = torch.full(
+            (), shape.seq_len - 2, dtype=torch.int32, device=dev)
+    return inputs
+
+
+def phase_tooling(torch, wf, pl2, dev, records) -> dict:
+    """Phase 14: the tooling (``repro_torch.roofline``, ``launch/dryrun``)
+    on the card.  Each of :data:`TOOLING_CELLS` runs for real, at the
+    shape of its dry-run record (``records``, counted on ``meta``): one
+    warm step, then one step timed with CUDA events; its flops counted on
+    the card must equal the record's, and its peak memory must be at least
+    the record's argument bytes (the rest is printed as ``temp``).  The
+    roofline terms and MFU of the step come from ``roofline/report``.
+    Launches neither hand-written kernel (checked)."""
+    import gc
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry as models
+    from repro_torch.roofline import costs, report
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    wf.LAUNCHES = pl2.LAUNCHES = 0
+    rows = []
+    for (arch, shape_name, B, dt, cut), fut in zip(TOOLING_CELLS, records):
+        t_cell = time.perf_counter()
+        rec = fut.result()[0]
+        cfg, mod = models.get(arch)
+        shape = tooling_shape(shape_name, B)
+        dtype = getattr(torch, dt)
+        train = shape.kind == "train"
+        model = build_model(torch, mod, cfg, dtype, dev, seed=14)
+        model.requires_grad_(train)
+        inputs = seeded_inputs(torch, cfg, mod, shape, model, dtype, dev,
+                               seed=14)
+        step = dryrun.step_fn(cfg, mod, shape.kind)
+        step(model, inputs)  # warm
+        torch.cuda.synchronize()
+        args_alloc = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step(model, inputs)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        peak = torch.cuda.max_memory_allocated(dev)
+        del out
+        flops, out = costs.count_flops(step, model, inputs)
+        del out
+        mem = rec["memory"]
+        if flops != rec["flops"]:
+            raise AssertionError(f"{arch} x {shape_name}: {flops} flops "
+                                 f"counted on the card, {rec['flops']} on "
+                                 "meta")
+        if peak < mem["argument_bytes"]:
+            raise AssertionError(f"{arch} x {shape_name}: peak {peak} "
+                                 "bytes below the record's arguments "
+                                 f"{mem['argument_bytes']}")
+        roof = report.analyze(rec, step_s=ms / 1e3)
+        log("tooling14-cell", arch=arch, shape=shape_name, cut=repr(cut),
+            batch=B, seq_len=shape.seq_len, dtype=dt, step_ms=f"{ms:.3f}",
+            flops_cuda=flops, flops_meta=rec["flops"],
+            model_flops=f"{rec['model_flops']:.6g}",
+            meta_count_s=rec["count_s"], argument_bytes=mem["argument_bytes"],
+            output_bytes=mem["output_bytes"], allocated_bytes=args_alloc,
+            peak_bytes=peak, temp_bytes=peak - mem["argument_bytes"],
+            fits_one_h100=rec["fits_one_h100"],
+            compute_ms=f"{roof['compute_s'] * 1e3:.4f}",
+            memory_ms=f"{roof['memory_s'] * 1e3:.4f}", collective_ms="null",
+            dominant=roof["dominant"],
+            roofline_mfu=f"{roof['mfu']:.4f}",
+            measured_mfu=f"{roof['measured_mfu']:.4f}",
+            bound_share=f"{roof['step_s'] * 1e3 / ms:.4f}",
+            s=f"{time.perf_counter() - t_cell:.2f}")
+        rows.append(dict(arch=arch, shape=shape_name, ms=ms, flops=flops,
+                         peak=peak, temp=peak - mem["argument_bytes"],
+                         mfu=roof["measured_mfu"]))
+        del model, inputs, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {"wavefront": wf.LAUNCHES, "pairwise_l2": pl2.LAUNCHES}
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched a kernel: {launches}")
+    log("tooling14-done", cells=len(rows), launches=launches,
+        s=f"{time.perf_counter() - t_phase:.2f}")
+    return {"rows": rows, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -2964,9 +3009,17 @@ def main(argv=None) -> int:
     index_launches = phase_index(torch, wf, dispatch, args, dev)
     train = phase_train(torch, wf, dispatch, args, dev)
     log("index-train-phases", s=f"{time.perf_counter() - t_new:.2f}")
-    decode = phase_decode(torch, wf, pl2, args, dev)
-    ssm = phase_ssm(torch, wf, pl2, args, dev)
-    timing = phase_timing(torch, wf, build, rng, dev, full["sizes"])
+    # phase 14's dry-run records are counted on meta by a worker process
+    # while the card runs phases 12 and 13
+    import concurrent.futures
+    import multiprocessing
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        records = tooling_records(pool)
+        decode = phase_decode(torch, wf, pl2, args, dev)
+        ssm = phase_ssm(torch, wf, pl2, args, dev)
+        tooling = phase_tooling(torch, wf, pl2, dev, records)
+    timing = phase_timing(torch, wf, rng, dev, full["sizes"])
     l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
     main_row = timing[1]  # the main path's largest dispatch
@@ -2984,7 +3037,8 @@ def main(argv=None) -> int:
                              "train_dedup": train["launches"],
                              "lev_ids": lev_launches,
                              "decode": decode["launches"]["wavefront"],
-                             "ssm": ssm["launches"]["wavefront"]},
+                             "ssm": ssm["launches"]["wavefront"],
+                             "tooling": tooling["launches"]["wavefront"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2996,7 +3050,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"embedding": emb["launches"],
                              "decode": decode["launches"]["pairwise_l2"],
                              "ssm": ssm["launches"]["pairwise_l2"],
-                             "ssm_embedding": ssm["embedding"]["launches"]},
+                             "ssm_embedding": ssm["embedding"]["launches"],
+                             "tooling": tooling["launches"]["pairwise_l2"]},
         **l2_err,
         "max_abs_err_ssm_embedding": ssm["embedding"]["max_abs_err"],
         **l2_rows[0]}]

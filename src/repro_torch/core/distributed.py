@@ -268,7 +268,8 @@ def flatten_net(net: ReferenceNet, pivot_level: Optional[int] = None
 
 
 def _batch_dist(dist_name: str, qs, xs, device=None):
-    """Deprecated: batched distance lives in the kernel registry — call
+    """Deprecated since v0.1, removed in v0.2: batched distance lives in
+    the kernel registry — call
     ``repro_torch.kernels.registry.get(name).batch(qs, xs)`` (or, from the
     facade, serve through ``repro_torch.retrieval.Retriever``, which never
     needs a raw batched distance).  This wrapper keeps external callers

@@ -74,15 +74,16 @@ def embed_windows(model, params, cfg, token_seqs: Sequence[np.ndarray],
 class EmbeddingRetriever:
     """Reference net over pooled hidden-state windows (Euclidean).
 
-    Deprecated as a *direct* public entry point — a thin shim over the
-    facade's ``index='embedding'`` kind::
+    Deprecated as a *direct* public entry point since v0.1 — a thin shim
+    over the facade's ``index='embedding'`` kind::
 
         repro_torch.retrieval.Retriever.build(
             RetrievalConfig("euclidean", index="embedding",
                             eps_prime=..., num_max=5,
                             tight_bounds=True), vectors)
 
-    The facade delegates here, so behavior and counts are identical.
+    The facade delegates here, so behavior and counts are identical; this
+    constructor shim will be removed in v0.2.
     """
 
     def __init__(self, vectors: np.ndarray, meta: List[Window], *,

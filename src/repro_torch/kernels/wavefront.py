@@ -262,7 +262,22 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.wavefront_error_string.restype = ctypes.c_char_p
         lib.wavefront_error_string.argtypes = [ctypes.c_int]
+        lib.wavefront_smem_bytes.restype = ctypes.c_int
+        lib.wavefront_smem_bytes.argtypes = ([ctypes.c_int] * 4
+                                             + [ctypes.POINTER(ctypes.c_int)])
     return lib
+
+
+def smem_bytes(mode: str, Lx: int, Ly: int, d: int) -> Tuple[int, int]:
+    """(dynamic shared memory bytes of one block, rows per block; 0 rows:
+    one block per row) that the launcher chooses for a dispatch of widths
+    ``Lx``, ``Ly`` and ``d``: the kernel's on-chip fact beside its cost
+    model (``roofline/costs.wavefront_cost``).  The library is built from
+    ``csrc/wavefront.cu`` on first use."""
+    rows = ctypes.c_int(0)
+    nbytes = _library().wavefront_smem_bytes(MODE_IDS[mode], Lx, Ly, d,
+                                             ctypes.byref(rows))
+    return nbytes, rows.value
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,

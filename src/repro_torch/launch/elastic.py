@@ -126,14 +126,14 @@ class ElasticIndex:
     serve batched fleet queries round-based (shared frontier) or as one
     stacked device query.
 
-    Deprecated as a *direct* public entry point — build through the facade
-    instead::
+    Deprecated as a *direct* public entry point since v0.1 — build through
+    the facade instead::
 
         repro_torch.retrieval.Retriever.build(
             RetrievalConfig(dist, execution="fleet", workers=...), data)
 
-    The facade delegates here, so behavior and counts are identical.
-    ``dist`` accepts a registry name or a ``Distance`` instance.  Shards
+    The facade delegates here, so behavior and counts are identical; this
+    constructor shim will be removed in v0.2.  ``dist`` accepts a registry name or a ``Distance`` instance.  Shards
     evaluate on ``backend`` (default ``kernel``) on ``device`` (default:
     the card), where the one-shot query runs too."""
 
@@ -334,8 +334,7 @@ class ElasticIndex:
                 s = self.shards.get(w)
                 if w in dead or s is None:
                     continue
-                # host per-shard parity loop: the sequential reference the
-                # stacked fleet path is held against
+                # lint: allow[dispatch-in-loop] -- host per-shard parity loop: the sequential reference the stacked fleet path is asserted against
                 for local in s.net.range_query(q, eps, qlen):
                     out.append(int(s.gids[local]))
             return sorted(out)

@@ -115,18 +115,23 @@ def grow_cache(cache: dict, length: int) -> dict:
     return out
 
 
+def cache_dtype(key: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype of cache entry ``key`` of a model run in ``dtype``: ``pos``
+    int32, an SSM ``state`` f32 (as a prefill leaves it: a state kept in
+    ``dtype`` is another recurrence), every other entry ``dtype``."""
+    return {"pos": torch.int32, "state": torch.float32}.get(key, dtype)
+
+
 def init_cache(defs: dict, dtype: torch.dtype, device=None) -> dict:
-    """Zeros of a model's ``cache_defs``: ``pos`` a 0-d int32, an SSM
-    ``state`` in f32 (as a prefill leaves it: a state kept in ``dtype`` is
-    another recurrence), every other entry in ``dtype``; None entries stay
-    None."""
+    """Zeros of a model's ``cache_defs`` in :func:`cache_dtype`'s dtypes;
+    None entries stay None."""
     out = {}
     for k, d in defs.items():
         if d is None:
             out[k] = None
             continue
-        dt = {"pos": torch.int32, "state": torch.float32}.get(k, dtype)
-        out[k] = torch.zeros(d.shape, dtype=dt, device=device)
+        out[k] = torch.zeros(d.shape, dtype=cache_dtype(k, dtype),
+                             device=device)
     return out
 
 

@@ -247,8 +247,12 @@ def moe_router(x: torch.Tensor, wr: torch.Tensor, top_k: int):
     gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
     E = wr.shape[0]
     me = probs.mean(dim=0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).to(
-        torch.float32) / idx.numel()
+    # assignments per expert: a scatter-add of ones, which (unlike
+    # ``bincount``) also runs on ``meta`` tensors
+    flat = idx.reshape(-1)
+    counts = torch.zeros(E, dtype=flat.dtype, device=flat.device
+                         ).scatter_add_(0, flat, torch.ones_like(flat))
+    ce = counts.to(torch.float32) / idx.numel()
     aux = E * torch.sum(me * ce)
     return gates.to(x.dtype), idx, aux
 

@@ -27,8 +27,9 @@ that tree
   (the reference's leaf order, which the optimizer keeps), and
   :func:`decay_mask` reads AdamW's weight-decay rule off the tree's shapes.
 
-The reference's logical axes' partition specs have no counterpart on one
-card; the axes are kept as documentation of each dimension.
+The logical axes are the reference's: no partitioned program runs on one
+card, but ``launch/specs.py`` resolves them to per-device shapes on a
+mesh (``launch/sharding.py``) to size a cell.
 """
 
 from __future__ import annotations

@@ -43,16 +43,23 @@ from repro_torch.models.params import ParamDef
 FULL_ATTN_MAX = 2048
 
 
+def _kv_axis(cfg, tp: int):
+    """KV heads shard over the tensor axis when ``tp`` divides them (the
+    reference's rule; a dry-run sizes a production mesh with it)."""
+    return "tensor" if (tp > 1 and cfg.n_kv_heads % tp == 0) else None
+
+
 def block_defs(cfg, tp: int = 1) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     He = cfg.heads_padded(tp)
     Hkv = cfg.n_kv_heads
+    kv_ax = _kv_axis(cfg, tp)
     defs = {
         "ln1": ParamDef((d,), (None,), init="ones"),
         "ln2": ParamDef((d,), (None,), init="ones"),
         "wq": ParamDef((d, He, hd), ("embed", "tensor", None), fan_in=d),
-        "wk": ParamDef((d, Hkv, hd), ("embed", None, None), fan_in=d),
-        "wv": ParamDef((d, Hkv, hd), ("embed", None, None), fan_in=d),
+        "wk": ParamDef((d, Hkv, hd), ("embed", kv_ax, None), fan_in=d),
+        "wv": ParamDef((d, Hkv, hd), ("embed", kv_ax, None), fan_in=d),
         "wo": ParamDef((He, hd, d), ("tensor", None, "embed"), fan_in=He * hd),
         "wg": ParamDef((d, cfg.d_ff), ("embed", "tensor"), fan_in=d),
         "wu": ParamDef((d, cfg.d_ff), ("embed", "tensor"), fan_in=d),
@@ -61,8 +68,8 @@ def block_defs(cfg, tp: int = 1) -> dict:
     if cfg.qkv_bias:
         defs.update({
             "bq": ParamDef((He, hd), ("tensor", None), init="zeros"),
-            "bk": ParamDef((Hkv, hd), (None, None), init="zeros"),
-            "bv": ParamDef((Hkv, hd), (None, None), init="zeros"),
+            "bk": ParamDef((Hkv, hd), (kv_ax, None), init="zeros"),
+            "bv": ParamDef((Hkv, hd), (kv_ax, None), init="zeros"),
         })
     if cfg.qk_norm:
         defs.update({

@@ -278,8 +278,7 @@ class _WindowEngine:
         cascade = self.cfg.lb_cascade if lb is None else lb
         rows = self._rows(queries)
         if execution == "host":
-            # via("host") contract: the sequential per-query loop IS the
-            # requested execution mode
+            # lint: allow[dispatch-in-loop] -- via("host") contract: sequential per-query loop IS the requested execution mode
             return [self.index.range_query(q, eps, lb_cascade=cascade)
                     for q in rows]
         # batched: ALL plans — every length bucket — through ONE engine run
@@ -336,8 +335,7 @@ class _FleetEngine:
             self.fleet.lb_cascade = lb   # QueryPlan.lb validates)
         try:
             if execution == "host":
-                # via("host") contract: the sequential per-query loop IS
-                # the requested execution mode
+                # lint: allow[dispatch-in-loop] -- via("host") contract: sequential per-query loop IS the requested execution mode
                 return [self.fleet.range_query(q, eps, dead=dead,
                                                batched=False)
                         for q in queries]

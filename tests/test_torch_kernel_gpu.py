@@ -312,3 +312,37 @@ def test_recurrent_decode_matches_forward_on_the_card(cuda_device, arch):
                                atol=2e-3)
     assert int(cache["pos"]) == S - 1
     assert (wf.LAUNCHES, pl2.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_flop_count_on_the_card_equals_meta(cuda_device, kind):
+    """The reduced smollm-360m forward (prefill) and train step: the flops
+    ``count_flops`` counts as they run on the card equal the dry-run's
+    count on ``meta`` at the same shape."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.models.params import init_params
+    from repro_torch.roofline import costs
+    cfg, mod = registry.get("smollm-360m", reduced=True)
+    shape = ShapeConfig("cut", 64, 2, kind)
+    rec = dryrun.measure("smollm-360m", shape, ("h100x1",),
+                         dtype=torch.float32, reduced=True)[0]
+    g = torch.Generator(cuda_device).manual_seed(0)
+    model = mod.build(cfg, init_params(mod.param_defs(cfg), g,
+                                       torch.float32, cuda_device),
+                      dtype=torch.float32, device=cuda_device)
+    model.requires_grad_(kind == "train")
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                              device=cuda_device, dtype=torch.int32)
+             for k in (("tokens", "labels") if kind == "train"
+                       else ("tokens",))}
+    inputs = {"batch": batch}
+    if kind == "train":
+        inputs["opt"] = dryrun.opt_state(cfg, mod, model)
+    flops, out = costs.count_flops(dryrun.step_fn(cfg, mod, kind), model,
+                                   inputs)
+    assert flops == rec["flops"] > 0
+    if kind == "prefill":
+        assert bool(torch.isfinite(out[0]).all())
