@@ -2095,8 +2095,9 @@ class MoeProbe:
             self.routers.append((x, wr))
             return self._router(x, wr, top_k)
 
-        def dispatch(gates, idx, n_experts, capacity):
-            buf_t, buf_g = self._dispatch(gates, idx, n_experts, capacity)
+        def dispatch(gates, idx, n_experts, capacity, expert_offset=0):
+            buf_t, buf_g = self._dispatch(gates, idx, n_experts, capacity,
+                                          expert_offset)
             self.calls.append((idx, buf_t, n_experts, capacity))
             return buf_t, buf_g
 
@@ -2320,6 +2321,10 @@ LONG_LENGTHS = (32_768, 131_072)
 LONG_WARM, LONG_STEPS = 2, 16
 #: training steps of mamba2-370m (through the train CLI) and zamba2-1.2b
 SSM_TRAIN_STEPS, HYBRID_TRAIN_STEPS = 10, 3
+#: phase 13's embedding run takes 1 / this of ``--embed-docs`` (at the
+#: whole count its host-bound index build took 72-97 s of a script that
+#: reached 957.67 s on a slow host)
+SSM_EMBED_SHARE = 2
 
 
 def span_text(span_ms: dict) -> str:
@@ -2337,9 +2342,9 @@ class KVWrites:
         self._mod, self._orig = hybrid, hybrid.update_cache
         self.last = {}
 
-        def update(cache, new, pos, seq_axis=1):
+        def update(cache, new, pos, *args, **kwargs):
             self.last[id(cache)] = (new, pos)
-            return self._orig(cache, new, pos, seq_axis=seq_axis)
+            return self._orig(cache, new, pos, *args, **kwargs)
 
         hybrid.update_cache = update
         return self
@@ -2519,7 +2524,9 @@ def ssm_embedding(torch, pl2, args, dev) -> dict:
     corpus, the ``embedding`` index and the exact all-pairs step through
     ``pairwise_l2`` (counted from a zeroed count), the range hits held to
     that matrix and, at a cut size, to the numpy host backend; then the
-    kernel against its plain version at d = 1024."""
+    kernel against its plain version at d = 1024.  Half of C's documents
+    (:data:`SSM_EMBED_SHARE`): the index build is host plan code, about
+    n^1.8 in the windows."""
     import numpy as np
     from repro_torch.core.embedding_retrieval import embed_windows
     from repro_torch.data.synthetic import token_corpus
@@ -2527,10 +2534,11 @@ def ssm_embedding(torch, pl2, args, dev) -> dict:
     from repro_torch.models import registry as models
     from repro_torch.retrieval import RetrievalConfig, Retriever
     t_emb = time.perf_counter()
+    docs = args.embed_docs // SSM_EMBED_SHARE
     cfg, mod = models.get("mamba2-370m")
     model = build_model(torch, mod, cfg, torch.bfloat16, dev, seed=23)
     window, doc_len = 16, 256
-    corpus = token_corpus(args.embed_docs, doc_len, cfg.vocab, seed=0,
+    corpus = token_corpus(docs, doc_len, cfg.vocab, seed=0,
                           dup_frac=0.05)
     embed_windows(mod, model, cfg, list(corpus[:8]), window, device=dev)
     torch.cuda.synchronize()
@@ -2539,13 +2547,13 @@ def ssm_embedding(torch, pl2, args, dev) -> dict:
     vecs, meta = embed_windows(mod, model, cfg, list(corpus), window,
                                device=dev)
     embed_s = time.perf_counter() - t0
-    if vecs.shape != (args.embed_docs * doc_len // window, cfg.d_model) \
+    if vecs.shape != (docs * doc_len // window, cfg.d_model) \
             or not np.isfinite(vecs).all():
         raise AssertionError(f"mamba2 embed_windows: {vecs.shape}")
     dups = duplicate_docs(corpus)
     if not dups:
         raise ValueError("no planted duplicate documents: --embed-docs "
-                         "must be at least 20")
+                         f"must be at least {20 * SSM_EMBED_SHARE}")
     per = -(-64 // len(dups))
     probe_ids = [dst * (doc_len // window) + w for dst, _ in dups
                  for w in range(per)][:64]
@@ -2598,7 +2606,7 @@ def ssm_embedding(torch, pl2, args, dev) -> dict:
     # launches are not the path's)
     ratio, err = compare_l2(torch, pl2, x, y)
     log("ssm13-embed", arch=cfg.name, d_model=cfg.d_model,
-        docs=args.embed_docs, windows=len(vecs), embed_s=f"{embed_s:.3f}",
+        docs=docs, windows=len(vecs), embed_s=f"{embed_s:.3f}",
         tokens_per_s=f"{corpus.size / embed_s:.0f}",
         build_s=f"{build_s:.2f}", build_evals=r.eval_stats()["build"],
         probes=len(probe_ids), range_eps=eps,
@@ -2798,13 +2806,30 @@ def tooling_shape(shape_name: str, batch: int):
 def tooling_records(pool) -> list:
     """Futures of the dry-run's ``h100x1`` record of each of
     :data:`TOOLING_CELLS` (``launch/dryrun.measure``: the step on
-    ``meta``), computed in ``pool``'s worker process while the card runs
+    ``meta``), computed in ``pool``'s worker processes while the card runs
     the phases before 14."""
     import torch
     from repro_torch.launch import dryrun
     return [pool.submit(dryrun.measure, arch, tooling_shape(shape, B),
                         ("h100x1",), dtype=getattr(torch, dt))
             for arch, shape, B, dt, _ in TOOLING_CELLS]
+
+
+#: the production meshes of phase 15's pod records
+POD_MESHES = ("pod16x16", "pod2x16x16")
+
+
+def pod_records(pool) -> list:
+    """Futures of the partitioned dry-run (``launch/dryrun.partitioned``) of
+    each of :data:`TOOLING_CELLS` at its published global batch and whole
+    depth on each of :data:`POD_MESHES`, as ``((arch, shape, mesh),
+    future)``, computed in ``pool`` while the card runs phases 12-13."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    return [((arch, shape, m), pool.submit(
+        dryrun.partitioned, arch, SHAPES[shape], m, dtype=getattr(torch, dt)))
+        for arch, shape, _, dt, _ in TOOLING_CELLS for m in POD_MESHES]
 
 
 def seeded_inputs(torch, cfg, mod, shape, model, dtype, dev, seed) -> dict:
@@ -2917,6 +2942,213 @@ def phase_tooling(torch, wf, pl2, dev, records) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+# -- phase 15: the partitioned program on the card ----------------------------
+
+#: decode steps of phase 15's qwen3-4b run (the deepseek-v2 cut takes half)
+SHARDED_STEPS = 16
+#: documents of phase 15's sharded embedding run (256 tokens each)
+SHARDED_DOCS = 32
+
+
+def _whole(t):
+    """A ``DTensor``'s global value (a tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def sharded_decode(torch, mod, model, cfg, ctx, prompt, steps, feed=None):
+    """A prefill of ``prompt`` and ``steps`` greedy decode steps under
+    ``ctx`` (fed ``feed``'s tokens instead, if given: another run's, so
+    that a difference does not change the sequence): the prefill's and
+    every step's logits (whole), the tokens fed, the final cache (whole)
+    and the seconds of the decode steps.  Under a mesh the grown cache is
+    laid out by ``cache_defs``' axes, so each step's write goes through
+    the sharded ``update_cache``."""
+    from repro_torch.models.common import grow_cache
+    from repro_torch.models.params import distribute_tree
+    B, P = prompt.shape
+    out = mod.forward(model, {"tokens": prompt}, cfg, ctx, return_cache=True)
+    logits = [_whole(out[0])[:, -1]]
+    cache = grow_cache({k: None if v is None else _whole(v)
+                        for k, v in out[-1].items()}, P + steps + 1)
+    del out
+    if ctx.mesh is not None:
+        cache = distribute_tree(cache, mod.cache_defs(cfg, B, P + steps + 1),
+                                ctx.mesh, ctx.rules)
+    toks = [logits[0].argmax(-1, keepdim=True)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = toks[i] if feed is None else feed[i]
+        lg, cache = mod.decode_step(model, cache, tok, cfg, ctx)
+        lg = _whole(lg)[:, 0]
+        logits.append(lg)
+        toks.append(lg.argmax(-1, keepdim=True))
+    dec_s = sync_s(torch, t0)
+    return logits, toks, {k: None if v is None else _whole(v)
+                          for k, v in cache.items()}, dec_s
+
+
+def same(torch, a, b):
+    """(bit-equal, largest |a - b|) of two lists or dicts of tensors."""
+    pairs = list(zip(a.values(), b.values())) if isinstance(a, dict) \
+        else list(zip(a, b))
+    pairs = [(x, y) for x, y in pairs if x is not None]
+    equal = all(torch.equal(x, y) for x, y in pairs)
+    diff = max(float((x.double() - y.double()).abs().max()) for x, y in pairs)
+    return equal, diff
+
+
+def phase_sharded(torch, wf, pl2, args, dev, pods) -> dict:
+    """Phase 15: the partitioned program (``models.layers.Ctx``) on the
+    card.  An NCCL group of world size 1 (a ``FileStore`` in a temporary
+    directory) and a ``(1, 1)`` ``("data", "model")`` mesh; under
+    ``Ctx(mesh, SERVE_RULES)``, each run against the same run under
+    ``NOCTX`` on the same weights (the network's parameters are laid out as
+    ``DTensor``s in place after the plain run): qwen3-4b whole (bf16, batch
+    ``--decode-batch`` x ``--prompt-len``, :data:`SHARDED_STEPS` decode
+    steps through the sharded ``update_cache``), phase 12's deepseek-v2 cut
+    (1 dense + ``--moe-layers`` MoE layers, bf16, half the prompt and
+    steps) through the expert-parallel ``moe_block``, and
+    ``embed_windows(ctx=)`` on smollm-360m over :data:`SHARDED_DOCS`
+    documents into one ``pairwise_l2`` launch, held to the plain version.
+    Both runs go in deterministic mode (``index_add_``'s atomics would
+    otherwise order the MoE's six expert outputs a token differently from
+    run to run) and the ``Ctx`` run is fed the plain run's tokens:
+    bit-equal results are expected; a difference is printed with its size
+    and with the plain run's own, repeated.
+    Then the pod-mesh records of phase 14's cells (``pods``), counted on
+    ``meta`` in the worker processes, with the roofline's collective term.
+    Launches: ``pairwise_l2`` once, the wavefront never (checked)."""
+    import dataclasses
+    import datetime
+    import gc
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.embedding_retrieval import embed_windows
+    from repro_torch.data.synthetic import token_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import registry as models
+    from repro_torch.models.layers import NOCTX, Ctx
+    from repro_torch.models.params import distribute
+    from repro_torch.roofline import report
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    out = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=60),
+            device_id=dev)
+        try:
+            mesh = device_mesh(Mesh(("data", "model"), (1, 1)), "cuda")
+            ctx = Ctx(mesh, shd.SERVE_RULES)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            wf.LAUNCHES = pl2.LAUNCHES = 0   # the phase's launches from here
+            for label, arch, layers, P, steps, seed in (
+                    ("qwen3", "qwen3-4b", None, args.prompt_len,
+                     SHARDED_STEPS, 15),
+                    ("deepseek", "deepseek-v2-236b", args.moe_layers,
+                     args.prompt_len // 2, SHARDED_STEPS // 2, 13)):
+                t0 = time.perf_counter()
+                cfg, mod = models.get(arch)
+                if layers is not None:
+                    cfg = dataclasses.replace(
+                        cfg, n_layers=cfg.first_dense_layers + layers)
+                model = build_model(torch, mod, cfg, torch.bfloat16, dev,
+                                    seed)
+                prompt = torch.as_tensor(rng.integers(
+                    0, cfg.vocab, (args.decode_batch, P)), device=dev)
+                lg0, tk0, c0, s0 = sharded_decode(torch, mod, model, cfg,
+                                                  NOCTX, prompt, steps)
+                lgr, _, _, _ = sharded_decode(torch, mod, model, cfg, NOCTX,
+                                              prompt, steps, feed=tk0)
+                distribute(model, mod.param_defs(cfg), mesh, ctx.rules)
+                lg1, _, c1, s1 = sharded_decode(torch, mod, model, cfg, ctx,
+                                                prompt, steps, feed=tk0)
+                eq_l, d_l = same(torch, lg0, lg1)
+                eq_c, d_c = same(torch, c0, c1)
+                eq_r, d_r = same(torch, lg0, lgr)
+                if not all(bool(torch.isfinite(x).all()) for x in lg1):
+                    raise AssertionError(f"{label}: non-finite logits")
+                if int(c1["pos"]) != P - 1 + steps:
+                    raise AssertionError(f"{label}: pos {int(c1['pos'])}")
+                log(f"sharded15-{label}", layers=cfg.n_layers,
+                    mesh="1x1 (data, model)", rules="SERVE_RULES",
+                    dtype="bfloat16", batch=args.decode_batch, prompt=P,
+                    steps=steps, logits_bit_equal=eq_l,
+                    logits_max_abs_diff=d_l, cache_bit_equal=eq_c,
+                    cache_max_abs_diff=d_c, plain_repeat_bit_equal=eq_r,
+                    plain_repeat_max_abs_diff=d_r,
+                    nomesh_decode_ms_per_step=f"{s0 / steps * 1e3:.3f}",
+                    ctx_decode_ms_per_step=f"{s1 / steps * 1e3:.3f}",
+                    ctx_host_overhead=f"{s1 / s0:.2f}",
+                    s=f"{time.perf_counter() - t0:.2f}")
+                out[label] = dict(equal=eq_l and eq_c, diff=max(d_l, d_c),
+                                  ms=s0 / steps * 1e3, ctx_ms=s1 / steps * 1e3)
+                del model, lg0, lg1, lgr, c0, c1
+                free()
+            # embed_windows(ctx=) on smollm-360m into one pairwise_l2
+            t0 = time.perf_counter()
+            cfg, mod = models.get("smollm-360m")
+            model = build_model(torch, mod, cfg, torch.float32, dev, seed=15)
+            corpus = token_corpus(SHARDED_DOCS, 256, cfg.vocab, seed=15)
+            v0, _ = embed_windows(mod, model, cfg, list(corpus), 16,
+                                  device=dev)
+            distribute(model, mod.param_defs(cfg), mesh, ctx.rules)
+            v1, meta = embed_windows(mod, model, cfg, list(corpus), 16,
+                                     ctx=ctx, device=dev)
+            eq_e = bool(np.array_equal(v0, v1))
+            d_e = float(np.abs(v0 - v1).max())
+            x = torch.as_tensor(v1, device=dev)
+            D = ops.pairwise_l2(x, x)
+            want = pl2.pairwise_l2_torch(x, x)
+            torch.cuda.synchronize()
+            ratio = float(((D.double() ** 2 - want.double() ** 2).abs()
+                           / l2_sq_bound(x, x)).max())
+            if ratio > 1.0 or not bool(torch.isfinite(D).all()):
+                raise AssertionError(f"sharded embedding: pairwise_l2 |dD^2|"
+                                     f" {ratio} x its bound")
+            launches = {"wavefront": wf.LAUNCHES,
+                        "pairwise_l2": pl2.LAUNCHES}
+            log("sharded15-embedding", docs=SHARDED_DOCS, windows=len(meta),
+                d_model=cfg.d_model, vectors_bit_equal=eq_e,
+                vectors_max_abs_diff=d_e, l2_over_bound=f"{ratio:.4f}",
+                launches_pairwise_l2=launches["pairwise_l2"],
+                launches_wavefront=launches["wavefront"],
+                s=f"{time.perf_counter() - t0:.2f}")
+            del model
+            free()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            dist.destroy_process_group()
+    if launches != {"wavefront": 0, "pairwise_l2": 1}:
+        raise AssertionError(f"phase 15 launches {launches}")
+    out["embedding"] = dict(equal=eq_e, diff=d_e)
+    out["launches"] = launches
+    for (arch, shape, m), fut in pods:
+        rec = fut.result()
+        coll = rec["collectives"]
+        log("sharded15-pod", arch=arch, shape=shape, mesh=m, cut="none",
+            flops_per_device=f"{rec['flops_per_device']:.6g}",
+            collective_bytes=coll["total_bytes"],
+            all_reduce=coll["all-reduce"], all_gather=coll["all-gather"],
+            reduce_scatter=coll["reduce-scatter"],
+            all_to_all=coll["all-to-all"], calls=coll["counts"],
+            collective_ms=f"{coll['total_bytes'] / report.LINK_BW * 1e3:.4f}",
+            count_s=rec["count_s"])
+    log("sharded15-done", s=f"{time.perf_counter() - t_phase:.2f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 20,000 windows build in 120-210 s on the H100 host; step 4 at lam=40
@@ -3014,11 +3246,13 @@ def main(argv=None) -> int:
     import concurrent.futures
     import multiprocessing
     with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
         records = tooling_records(pool)
+        pods = pod_records(pool)
         decode = phase_decode(torch, wf, pl2, args, dev)
         ssm = phase_ssm(torch, wf, pl2, args, dev)
         tooling = phase_tooling(torch, wf, pl2, dev, records)
+        sharded = phase_sharded(torch, wf, pl2, args, dev, pods)
     timing = phase_timing(torch, wf, rng, dev, full["sizes"])
     l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
@@ -3038,7 +3272,8 @@ def main(argv=None) -> int:
                              "lev_ids": lev_launches,
                              "decode": decode["launches"]["wavefront"],
                              "ssm": ssm["launches"]["wavefront"],
-                             "tooling": tooling["launches"]["wavefront"]},
+                             "tooling": tooling["launches"]["wavefront"],
+                             "sharded": sharded["launches"]["wavefront"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3046,12 +3281,14 @@ def main(argv=None) -> int:
         "name": "pairwise_l2", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
         "replaces": "src/repro/kernels/pairwise_l2.py:47",
-        "launches": emb["launches"] + ssm["embedding"]["launches"],
+        "launches": emb["launches"] + ssm["embedding"]["launches"]
+        + sharded["launches"]["pairwise_l2"],
         "launches_by_path": {"embedding": emb["launches"],
                              "decode": decode["launches"]["pairwise_l2"],
                              "ssm": ssm["launches"]["pairwise_l2"],
                              "ssm_embedding": ssm["embedding"]["launches"],
-                             "tooling": tooling["launches"]["pairwise_l2"]},
+                             "tooling": tooling["launches"]["pairwise_l2"],
+                             "sharded": sharded["launches"]["pairwise_l2"]},
         **l2_err,
         "max_abs_err_ssm_embedding": ssm["embedding"]["max_abs_err"],
         **l2_rows[0]}]

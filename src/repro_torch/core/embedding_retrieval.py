@@ -15,14 +15,16 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import device as device_mod
 from repro_torch.core.segmentation import Window
+from repro_torch.models.layers import NOCTX, Ctx
 
 
 def embed_windows(model, params, cfg, token_seqs: Sequence[np.ndarray],
-                  window: int, *, stride: Optional[int] = None,
-                  normalize: bool = True,
+                  window: int, *, ctx: Ctx = NOCTX,
+                  stride: Optional[int] = None, normalize: bool = True,
                   device=None) -> Tuple[np.ndarray, List[Window]]:
     """Run the model, mean-pool hidden states over fixed windows.
 
@@ -32,7 +34,10 @@ def embed_windows(model, params, cfg, token_seqs: Sequence[np.ndarray],
     contiguous span of ``window`` tokens of the hidden states before the
     final norm; stride defaults to the window (non-overlapping, matching the
     paper's database segmentation).  With ``normalize`` each vector is
-    divided by ``max(|v|, 1e-9)``.
+    divided by ``max(|v|, 1e-9)``.  Under ``ctx``'s mesh the forward is
+    partitioned (``params`` laid out by ``params.distribute``; each
+    stacked batch split over the batch's mesh axes where they divide it)
+    and the hidden states are gathered whole for the pooling.
     """
     stride = stride or window
     dev = device_mod.resolve(device)
@@ -53,8 +58,11 @@ def embed_windows(model, params, cfg, token_seqs: Sequence[np.ndarray],
             continue
         tokens = torch.as_tensor(np.stack([seqs[i] for i in sids])).to(at)
         with torch.no_grad():  # a trainer's network records no graph here
-            hs = model.forward(params, {"tokens": tokens}, cfg,
-                               return_hidden=True).to(torch.float32)
+            hs = model.forward(params, {"tokens": tokens}, cfg, ctx,
+                               return_hidden=True)
+        if isinstance(hs, DTensor):
+            hs = hs.full_tensor()
+        hs = hs.to(torch.float32)
         # (B, S, d) -> (B, n_windows, d): means over each window's positions
         w = hs.unfold(1, window, stride).mean(dim=-1)
         w = w.cpu().numpy()

@@ -13,10 +13,17 @@ shapes), whether they fit one H100, and the flops beside the model's
 (``roofline.report.model_flops_for``).  Records go to
 ``reports/dryrun_torch/*.json``; resumable per cell.
 
-The reference lowers and compiles each cell with XLA and reads its memory
-and HLO; here no partitioned program runs, so the per-device figures are
-the specs' even split (no temporaries, no collectives: the roofline
-report says so).
+On the production meshes (``pod16x16``, ``pod2x16x16``) the step also runs
+partitioned, as the reference lowers it (:func:`partitioned`): under
+``Ctx`` on a ``DeviceMesh`` of a ``fake`` process group of the mesh's
+world size, as rank 0, with ``meta`` local shards, the parameters, batch,
+cache and optimizer state laid out by their logical axes.  Nothing is
+sent; ``roofline.costs.count_collectives`` counts the rank's local
+matrix-product flops (``flops_per_device``; the even split ``flops /
+n_devices`` stays beside it as ``flops_even_split``) and the operand bytes
+of its collectives per kind (``collectives``, the reference's layout).
+``h100x1`` runs no collective and keeps the unpartitioned record.  Memory
+is the specs' per-device bytes (no temporaries).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
@@ -28,6 +35,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import dataclasses
 import json
 import multiprocessing
 import pathlib
@@ -40,9 +49,10 @@ import torch
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import specs as specs_lib
-from repro_torch.launch.mesh import MESHES
+from repro_torch.launch.mesh import MESHES, Mesh, device_mesh
 from repro_torch.models import registry
-from repro_torch.models.params import decay_mask
+from repro_torch.models.layers import NOCTX, Ctx
+from repro_torch.models.params import decay_mask, distribute, distribute_tree
 from repro_torch.roofline import costs
 from repro_torch.roofline.report import model_flops_for
 from repro_torch.train import optimizer as opt_lib
@@ -64,18 +74,18 @@ def opt_config(cfg: ModelConfig) -> opt_lib.OptConfig:
     return opt_lib.OptConfig(state_dtype=specs_lib._moment_dtype(cfg))
 
 
-def step_fn(cfg: ModelConfig, mod, kind: str):
+def step_fn(cfg: ModelConfig, mod, kind: str, ctx: Ctx = NOCTX):
     """The cell's step as ``fn(net, inputs)``: ``inputs`` holds ``batch``,
     and ``opt`` (the optimizer state) for training or ``cache`` for
-    decode."""
+    decode; under ``ctx``'s mesh, partitioned."""
     if kind == "train":
-        train_step = make_train_step(mod, cfg, opt_config(cfg))
+        train_step = make_train_step(mod, cfg, opt_config(cfg), ctx)
         return lambda net, inp: train_step(net, inp["opt"], inp["batch"])
     if kind == "prefill":
-        return lambda net, inp: mod.forward(net, inp["batch"], cfg,
+        return lambda net, inp: mod.forward(net, inp["batch"], cfg, ctx,
                                             return_cache=True)
     return lambda net, inp: mod.decode_step(net, inp["cache"],
-                                            inp["batch"]["tokens"], cfg)
+                                            inp["batch"]["tokens"], cfg, ctx)
 
 
 def opt_state(cfg: ModelConfig, mod, net) -> dict:
@@ -141,14 +151,81 @@ def abstract_inputs(cfg: ModelConfig, mod, shape: ShapeConfig, net,
     return inputs
 
 
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """A ``fake`` default process group of ``world_size`` ranks, this
+    process rank 0: collectives on ``meta`` tensors run their shape
+    functions and send nothing."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def program_mesh(mesh: Mesh) -> Mesh:
+    """The mesh the partitioned program runs on: ``mesh``, with a ``pod``
+    axis folded into ``data`` (``(2, 16, 16)`` runs as ``(32, 16)``).
+
+    On the folded mesh the batch is split over the 32 ranks of ``(pod,
+    data)`` in the reference's order, so a serving step is the
+    reference's; a training step's FSDP split of the weights spans both
+    pods (32 ways) where the reference's stays in one (16 ways, weights
+    replicated across pods).  The fold is for time: ``DTensor``'s
+    cost-based choice of each op's layout explores far more candidates on
+    a 3-axis mesh whose batch is split over two axes (one reduced qwen3-4b
+    decode step took 289 s to count on the CPU against 4.9 s on
+    ``(16, 16)``)."""
+    if "pod" not in mesh.axis_names:
+        return mesh
+    sizes = dict(zip(mesh.axis_names, mesh.sizes))
+    return Mesh(("data", "model"), (sizes["pod"] * sizes["data"],
+                                    sizes["model"]))
+
+
+def partitioned(arch: str, shape: ShapeConfig, mesh_name: str, *,
+                dtype: Optional[torch.dtype] = None, reduced: bool = False,
+                **replace) -> dict:
+    """The cell's step partitioned on ``mesh_name`` as one rank of a
+    ``fake`` group sees it (module docstring), the config's fields
+    ``replace``d (a cut in depth): ``{"flops_per_device", "collectives",
+    "count_s"}``."""
+    cfg, mod = registry.get(arch, reduced=reduced)
+    cfg = dataclasses.replace(cfg, **replace)
+    dtype = dtype or getattr(torch, cfg.param_dtype)
+    mesh = program_mesh(MESHES[mesh_name])
+    rules = shd.TRAIN_RULES if shape.kind == "train" else shd.SERVE_RULES
+    t0 = time.perf_counter()
+    with fake_group(mesh.n_devices):
+        dmesh = device_mesh(mesh, "cuda")
+        ctx = Ctx(dmesh, rules)
+        tp = ctx.axis_size("tensor")
+        net = specs_lib.abstract_model(cfg, dtype,
+                                       train=shape.kind == "train", tp=tp)
+        distribute(net, mod.param_defs(cfg, tp), dmesh, rules)
+        inputs = abstract_inputs(cfg, mod, shape, net, dtype)
+        if "cache" in inputs:
+            inputs["cache"] = distribute_tree(
+                inputs["cache"], mod.cache_defs(cfg, shape.global_batch,
+                                                shape.seq_len), dmesh, rules)
+        flops, coll, _ = costs.count_collectives(
+            step_fn(cfg, mod, shape.kind, ctx), net, inputs)
+    return {"flops_per_device": flops, "collectives": coll,
+            "count_s": round(time.perf_counter() - t0, 2)}
+
+
 def measure(arch: str, shape: ShapeConfig,
             meshes: Sequence[str] = tuple(MESHES), *,
             dtype: Optional[torch.dtype] = None,
             reduced: bool = False) -> List[dict]:
     """One record per mesh of the cell ``arch`` x ``shape`` (any
     ``ShapeConfig``: a cut of a ``SHAPES`` cell too), in ``dtype`` (default:
-    the config's ``param_dtype``).  The step runs once, on ``meta``; errors
-    raise."""
+    the config's ``param_dtype``).  The step runs once, unpartitioned, on
+    ``meta`` (``flops_per_device`` is the even split until
+    :func:`add_partitioned`); errors raise."""
     cfg, mod = registry.get(arch, reduced=reduced)
     dtype = dtype or getattr(torch, cfg.param_dtype)
     t0 = time.perf_counter()
@@ -161,7 +238,7 @@ def measure(arch: str, shape: ShapeConfig,
     for m in meshes:
         mem = memory(cfg, mod, shape, m, dtype)
         n_dev = MESHES[m].n_devices
-        recs.append({
+        rec = {
             "arch": arch, "shape": shape.name, "mesh": m, "status": "ok",
             "kind": shape.kind, "seq_len": shape.seq_len,
             "global_batch": shape.global_batch, "reduced": reduced,
@@ -174,7 +251,27 @@ def measure(arch: str, shape: ShapeConfig,
             "flops_source": "meta", "count_s": round(count_s, 2),
             "param_count": cfg.param_count(),
             "active_param_count": cfg.active_param_count(),
-        })
+        }
+        recs.append(rec)
+    return recs
+
+
+def add_partitioned(recs: List[dict], shape: ShapeConfig) -> List[dict]:
+    """``recs`` (:func:`measure`'s) with each production mesh's record
+    holding its partitioned step's count (:func:`partitioned`):
+    ``flops_per_device`` as counted on one rank, ``flops_even_split``
+    beside it, ``collectives`` and the ``program_mesh``."""
+    for rec in recs:
+        if rec["n_devices"] == 1:
+            continue
+        part = partitioned(rec["arch"], shape, rec["mesh"],
+                           dtype=getattr(torch, rec["dtype"]),
+                           reduced=rec["reduced"])
+        rec.update(flops_even_split=rec["flops"] / rec["n_devices"],
+                   flops_per_device=part["flops_per_device"],
+                   collectives=part["collectives"],
+                   program_mesh=list(program_mesh(MESHES[rec["mesh"]]).sizes),
+                   partitioned_count_s=part["count_s"])
     return recs
 
 
@@ -204,7 +301,8 @@ def run_cell(arch: str, shape_name: str, meshes: Sequence[str],
         print(f"[skip-by-design] {arch} x {shape_name}", flush=True)
     else:
         try:
-            recs = measure(arch, SHAPES[shape_name], meshes)
+            recs = add_partitioned(measure(arch, SHAPES[shape_name], meshes),
+                                   SHAPES[shape_name])
         except Exception as e:  # record failures; the grid keeps going
             recs = [{"arch": arch, "shape": shape_name, "mesh": m,
                      "status": "error", "error": f"{type(e).__name__}: {e}",

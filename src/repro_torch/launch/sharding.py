@@ -6,16 +6,24 @@ axes, as the reference's do: training uses FSDP(data) x TP(model) x
 DP(pod); serving uses DP(pod, data) x TP(model), and the decode KV cache
 shards its length axis over the model axis.  A spec is a tuple with one
 entry per dimension (None, a mesh axis, or a tuple of mesh axes): the
-entries of the reference's ``PartitionSpec``.  No partitioned program runs
-on one card, so a spec is used for sizing: :func:`shard_shape` is the
-per-device shape.
+entries of the reference's ``PartitionSpec``.  :func:`shard_shape` is the
+per-device shape of a spec; :func:`sharding` turns it into the
+``DTensor`` placements of a ``DeviceMesh`` (one per mesh axis: ``Shard``
+of the dimension that axis splits, else ``Replicate``) and
+:func:`constrain` lays a tensor out by them, the reference's
+``with_sharding_constraint``.  A mesh is the port's named
+:class:`~repro_torch.launch.mesh.Mesh` or a ``DeviceMesh`` with axis
+names (:func:`~repro_torch.launch.mesh.device_mesh`).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Union
 
-from repro_torch.launch.mesh import Mesh
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch.launch.mesh import Mesh, device_mesh, named  # noqa: F401
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -77,6 +85,7 @@ def spec(mesh: Mesh, rules: Dict[str, Axis], *logical: Optional[str],
     """The mesh axes of each dimension of an array whose axes carry the
     given logical names.  With ``shape``, mesh axes that do not divide a
     dimension are pruned."""
+    mesh = named(mesh)
     out = []
     for i, name in enumerate(logical):
         if name is None:
@@ -95,6 +104,7 @@ def shard_shape(shape: tuple, spec_: tuple, mesh: Mesh) -> tuple:
     """The per-device shape of an array of ``shape`` laid out by ``spec_``:
     each dimension divided by the product of its mesh axes' sizes (rounded
     up: a partitioner pads a dimension that does not divide)."""
+    mesh = named(mesh)
     out = []
     for dim, ax in zip(shape, spec_):
         axes = () if ax is None else (ax,) if isinstance(ax, str) else ax
@@ -103,6 +113,42 @@ def shard_shape(shape: tuple, spec_: tuple, mesh: Mesh) -> tuple:
             n *= mesh.shape[a]
         out.append(-(-dim // n))
     return tuple(out)
+
+
+def placements(mesh, spec_: tuple) -> list:
+    """The ``DTensor`` placements of ``spec_`` on the ``DeviceMesh``
+    ``mesh``: per mesh axis ``Shard(dim)`` of the dimension it splits,
+    else ``Replicate()``.  A dimension split over several axis (``("pod",
+    "data")``) is split over them in mesh order, outermost first, as the
+    reference's ``PartitionSpec``."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, ax in enumerate(spec_):
+        for a in () if ax is None else (ax,) if isinstance(ax, str) else ax:
+            out[names.index(a)] = Shard(dim)
+    return out
+
+
+def sharding(mesh, rules: Dict[str, Axis], *logical: Optional[str],
+             shape: Optional[tuple] = None) -> list:
+    """The placements of an array whose axes carry ``logical`` names (the
+    reference's ``NamedSharding``)."""
+    return placements(mesh, spec(mesh, rules, *logical, shape=shape))
+
+
+def constrain(x, mesh, rules: Dict[str, Axis], *logical):
+    """``x`` laid out by its logical axes on the ``DeviceMesh`` ``mesh``:
+    a ``DTensor`` is redistributed (a collective where its placements
+    differ), a plain tensor, which every rank holds whole, is cut to this
+    rank's shard with no communication.  Axes that do not divide are left
+    whole; a name list of the wrong rank leaves ``x`` as it is (the
+    reference's ``with_sharding_constraint`` fails and it returns ``x``)."""
+    if len(logical) != x.ndim:
+        return x
+    pl = sharding(mesh, rules, *logical, shape=tuple(x.shape))
+    if isinstance(x, DTensor):
+        return x if list(x.placements) == pl else x.redistribute(mesh, pl)
+    return distribute_tensor(x, mesh, pl, src_data_rank=None)
 
 
 def tree_specs(defs, mesh: Mesh, rules: Dict[str, Axis]):

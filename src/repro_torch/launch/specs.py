@@ -128,10 +128,11 @@ def tensors(tree):
 
 
 def abstract_model(cfg: ModelConfig, dtype: torch.dtype, *,
-                   train: bool) -> torch.nn.Module:
-    """A network of ``cfg`` on ``meta`` in ``dtype``: trainable
-    (parameters require gradients) or built for inference."""
+                   train: bool, tp: int = 1) -> torch.nn.Module:
+    """A network of ``cfg`` on ``meta`` in ``dtype`` (heads padded to a
+    multiple of ``tp``): trainable (parameters require gradients) or built
+    for inference."""
     with torch.device("meta"):
-        net = MODEL_CLASSES[cfg.family](cfg)
+        net = MODEL_CLASSES[cfg.family](cfg, tp)
     net = net.to(dtype)
     return net.requires_grad_(train).train(train)

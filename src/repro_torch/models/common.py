@@ -9,14 +9,17 @@ one block module per layer.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
-from repro_torch.models.layers import rms_norm
+from repro_torch.models import layers
+from repro_torch.models.layers import NOCTX, Ctx, rms_norm
 from repro_torch.models.params import ParamDef, params_from_jax
 
 
@@ -29,12 +32,49 @@ def embed_defs(cfg) -> dict:
     }
 
 
-def embed_tokens(model, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids (B, S) -> embeddings (B, S, d) in the parameters' dtype."""
-    return F.embedding(tokens, model.tok.weight)
+def embed_tokens(model, tokens: torch.Tensor,
+                 ctx: Ctx = NOCTX) -> torch.Tensor:
+    """Token ids (B, S) -> embeddings (B, S, d) in the parameters' dtype.
+
+    Under a mesh the lookup is a local region: each rank looks its tokens
+    up in its rows of the table (the vocabulary axis stays split, the
+    model axis is gathered), zeros for ids outside them, and the partial
+    rows are summed over the vocabulary's mesh axes (the reference's
+    GSPMD gather of a vocabulary-sharded table)."""
+    if ctx.mesh is None:
+        return F.embedding(tokens, model.tok.weight)
+    mesh = ctx.mesh
+    w = model.tok.weight
+    w = w.redistribute(mesh, [pl if pl == Shard(0) else Replicate()
+                              for pl in w.placements])
+    ids = ctx.constrain(tokens, "batch", "seq")
+    # ranks along the tokens' mesh axes look up different rows
+    w_loc = layers.to_local(w, {i for i, p in enumerate(ids.placements)
+                                if isinstance(p, Shard)})
+    local = ids.to_local() - layers.local_offset(w, 0)
+    inb = (local >= 0) & (local < w_loc.shape[0])
+    h = F.embedding(local.clamp(0, max(w_loc.shape[0] - 1, 0)), w_loc)
+    h = h * inb[..., None].to(h.dtype)
+    part = [wp == Shard(0) for wp in w.placements]
+    pl = [Partial() if p else ip for p, ip in zip(part, ids.placements)]
+    # each rank's rows enter the sum once: their gradient is the whole one
+    grad_pl = [Replicate() if p else ip for p, ip in zip(part, ids.placements)]
+    h = layers.from_local(h, mesh, pl, tuple(ids.shape) + (w.shape[1],),
+                          grad_placements=grad_pl)
+    return ctx.constrain(h, "batch", "seq", None)
 
 
-def maybe_prepend_embeds(h: Optional[torch.Tensor], batch: dict):
+def shard_batch(batch: dict, ctx: Ctx) -> dict:
+    """A batch's arrays laid out by their batch axis (the reference's
+    ``in_shardings`` of a step's batch); unchanged without a mesh."""
+    if ctx.mesh is None:
+        return batch
+    return {k: ctx.constrain(v, "batch", *(None,) * (v.ndim - 1))
+            if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+
+
+def maybe_prepend_embeds(h: Optional[torch.Tensor], batch: dict,
+                         ctx: Ctx = NOCTX):
     """Modality frontend stub: precomputed frame/patch embeddings are
     prepended to (or replace) the token embeddings."""
     embeds = batch.get("embeds")
@@ -45,18 +85,21 @@ def maybe_prepend_embeds(h: Optional[torch.Tensor], batch: dict):
     return torch.cat([embeds.to(h.dtype), h], dim=1)
 
 
-def unembed(model, h: torch.Tensor) -> torch.Tensor:
+def unembed(model, h: torch.Tensor, ctx: Ctx = NOCTX) -> torch.Tensor:
     """Final norm and the output projection: (B, S, d) -> logits (B, S, V)."""
-    return F.linear(rms_norm(h, model.final_norm), model.out.weight)
+    logits = F.linear(rms_norm(h, model.final_norm), model.out.weight)
+    return ctx.constrain(logits, "batch", "seq", "tensor")
 
 
-def head_mask(cfg, tp: int, dtype=torch.bfloat16, device=None):
+def head_mask(cfg, tp: int, dtype=torch.bfloat16, device=None, like=None):
     """1 for real heads, 0 for tensor-parallel padding heads (None if no
-    padding; always None on one card, ``tp = 1``)."""
+    padding: always on one card, ``tp = 1``); replicated on the mesh of
+    ``like`` if that is a ``DTensor``."""
     He = cfg.heads_padded(tp)
     if He == cfg.n_heads:
         return None
-    return (torch.arange(He, device=device) < cfg.n_heads).to(dtype)
+    m = (torch.arange(He, device=device) < cfg.n_heads).to(dtype)
+    return m if like is None else layers.replicated_like(m, like)
 
 
 def _stack(ys: list):
@@ -135,14 +178,15 @@ def init_cache(defs: dict, dtype: torch.dtype, device=None) -> dict:
     return out
 
 
-def build(model_cls, cfg, params, *, dtype=None, device=None):
-    """A ``model_cls(cfg)`` network holding ``params`` (a tree in the
-    reference's layout, the model module's ``param_defs``), on ``device``
-    (default: the card), cast to ``dtype`` if given.  Built for inference:
-    no gradients.  Each model module's ``build`` is this with its class."""
+def build(model_cls, cfg, params, *, dtype=None, device=None, tp: int = 1):
+    """A ``model_cls(cfg, tp)`` network holding ``params`` (a tree in the
+    reference's layout, the model module's ``param_defs(cfg, tp)``: heads
+    padded to a multiple of ``tp``), on ``device`` (default: the card),
+    cast to ``dtype`` if given.  Built for inference: no gradients.  Each
+    model module's ``build`` is this with its class."""
     dev = device_mod.resolve(device)
     with torch.device("meta"):
-        model = model_cls(cfg)
+        model = model_cls(cfg, tp)
     model.load_state_dict(params_from_jax(params, dtype=dtype, device=dev),
                           strict=True, assign=True)
     return model.requires_grad_(False).eval()
@@ -154,22 +198,33 @@ def _check(params, cfg) -> None:
                          f"not {cfg.name!r}")
 
 
-def forward(params, batch: dict, cfg, **kw):
-    """``params(batch, **kw)`` for a network built for ``cfg``: in
+def _no_grad(ctx: Ctx, enabled: bool = True):
+    """Inference mode, or under a mesh ``no_grad`` (a view of a ``DTensor``
+    made outside inference mode cannot be taken inside it)."""
+    if ctx.mesh is None:
+        return torch.inference_mode(enabled)
+    return torch.no_grad() if enabled else contextlib.nullcontext()
+
+
+def forward(params, batch: dict, cfg, ctx: Ctx = NOCTX, **kw):
+    """``params(batch, ctx, **kw)`` for a network built for ``cfg``: in
     inference mode unless its parameters require gradients and autograd is
-    enabled (the trainer's network)."""
+    enabled (the trainer's network).  Under a mesh the batch is laid out
+    by its batch axis first."""
     _check(params, cfg)
     trains = torch.is_grad_enabled() and params.out.weight.requires_grad
-    with torch.inference_mode(not trains):
-        return params(batch, **kw)
+    with ctx.scope(), _no_grad(ctx, not trains):
+        return params(shard_batch(batch, ctx), ctx, **kw)
 
 
-def decode_step(params, cache: dict, tokens: torch.Tensor, cfg):
-    """``params.decode(cache, tokens)`` in inference mode, for a network
-    built for ``cfg``."""
+def decode_step(params, cache: dict, tokens: torch.Tensor, cfg,
+                ctx: Ctx = NOCTX):
+    """``params.decode(cache, tokens, ctx)`` in inference mode, for a
+    network built for ``cfg``."""
     _check(params, cfg)
-    with torch.inference_mode():
-        return params.decode(cache, tokens)
+    with ctx.scope(), _no_grad(ctx):
+        return params.decode(cache, ctx.constrain(tokens, "batch", None),
+                             ctx)
 
 
 def stack_layer_defs(defs: dict, n_layers: int) -> dict:

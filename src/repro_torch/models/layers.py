@@ -19,9 +19,24 @@ The MoE layer is the reference's token-choice top-k router
 :func:`moe_expert_compute`) and routed plus shared experts
 (:func:`moe_block`), with every expert on the one card.
 
-The reference's sharding context (``Ctx``) and its ``shard_map`` branches
-(the sharded cache write, expert parallelism) have no counterpart on one
-card: the port runs the reference's no-mesh branch.
+The mesh context :class:`Ctx` is the reference's: a
+``torch.distributed`` ``DeviceMesh`` and the logical-axis rules
+(``launch/sharding.py``).  Under a mesh the parameters and activations are
+``DTensor``s; ``ctx.constrain`` redistributes an activation to the layout
+of its logical axes at the reference's constraint points (the Megatron
+schedule of :func:`gated_mlp`, the cache-length-sharded scores of
+:func:`attn_decode`), and :func:`Ctx.scope` lets plain tensors stand for
+replicated ones.  The reference's two ``shard_map`` branches are explicit
+local regions (``to_local``, the reference's local function,
+``from_local`` and a redistribution, whose collectives are
+``c10d_functional`` ops): :func:`update_cache`, where only the shard
+owning ``pos`` writes, and :func:`moe_block`'s expert parallelism, where
+each shard dispatches its own tokens to its own experts and one
+all-reduce over ``model`` sums the partial outputs.  So is attention
+(:func:`_local_heads`: each rank's heads), where ``DTensor`` would
+reshard inside the score products.  With ``Ctx(None)`` (:data:`NOCTX`)
+every constraint is the identity and every function runs the reference's
+no-mesh branch.
 
 Mamba2's pieces close the file: the depthwise causal convolution
 (:func:`causal_conv1d`, with its streaming cache), the chunked SSD scan
@@ -30,11 +45,76 @@ Mamba2's pieces close the file: the depthwise causal convolution
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.launch import sharding as shd
+
+
+@dataclasses.dataclass(frozen=True)
+class Ctx:
+    """A ``DeviceMesh`` (or None) and the logical-axis rules."""
+
+    mesh: Optional[object]
+    rules: Optional[Dict] = None
+
+    def constrain(self, x, *logical):
+        """``x`` laid out by its logical axes (``sharding.constrain``); the
+        identity, returning ``x`` itself, without a mesh."""
+        if self.mesh is None:
+            return x
+        return shd.constrain(x, self.mesh, self.rules, *logical)
+
+    def axis_size(self, logical: str) -> int:
+        """The number of shards of the logical axis ``logical``: the
+        product of the sizes of its mesh axes present in the mesh (1
+        without a mesh)."""
+        if self.mesh is None:
+            return 1
+        ax = self.rules.get(logical)
+        if ax is None:
+            return 1
+        shape = shd.named(self.mesh).shape
+        n = 1
+        for a in (ax,) if isinstance(ax, str) else ax:
+            if a in shape:
+                n *= shape[a]
+        return n
+
+    def scope(self):
+        """The context a partitioned program runs in: plain tensors mixed
+        with ``DTensor``s count as replicated (nothing without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return implicit_replication()
+
+
+NOCTX = Ctx(None)
+
+
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """A plain tensor ``t`` (which every rank holds whole) as a replicated
+    ``DTensor`` on ``ref``'s mesh when ``ref`` is a ``DTensor``: an index
+    or mask an op saves for its backward pass, which does not run under
+    ``Ctx.scope``'s implicit replication."""
+    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
+        return DTensor.from_local(t, ref.device_mesh,
+                                  [Replicate()] * ref.device_mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def masked(mask: torch.Tensor, s: torch.Tensor, fill: float = -1e30):
+    """``torch.where(mask, s, fill)`` (a plain mask beside a ``DTensor``
+    replicated: :func:`replicated_like`)."""
+    return torch.where(replicated_like(mask, s), s, fill)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
@@ -66,11 +146,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-              wd: torch.Tensor) -> torch.Tensor:
+              wd: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
     """SwiGLU: ``silu(x W_g) * (x W_u) W_d``, weights in ``nn.Linear``'s
-    ``(out, in)`` layout."""
+    ``(out, in)`` layout.  With ``ctx`` the hidden axis is pinned to the
+    tensor axis (column-parallel up, row-parallel down, one all-reduce)."""
     g = F.linear(x, wg)
     u = F.linear(x, wu)
+    if ctx is not None:
+        hidden = ("batch",) + (None,) * (g.ndim - 2) + ("tensor",)
+        g = ctx.constrain(g, *hidden)
+        u = ctx.constrain(u, *hidden)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     return F.linear(h, wd)
 
@@ -84,13 +169,16 @@ def _expand_kv(k: torch.Tensor, n_q_heads: int,
     g = group_size or max(n_q_heads // Hkv, 1)
     idx = torch.clamp_max(torch.arange(n_q_heads, device=k.device) // g,
                           Hkv - 1)
-    return k[:, :, idx, :]
+    return k[:, :, replicated_like(idx, k), :]
 
 
 def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_offset: int = 0,
               group_size: Optional[int] = None) -> torch.Tensor:
     """(B,Sq,H,dh) x (B,Sk,Hkv,dh) -> (B,Sq,H,dh), materialised scores."""
+    if isinstance(q, DTensor):
+        return _local_heads(attn_full, q, k, v, group_size, causal=causal,
+                            q_offset=q_offset)
     B, Sq, H, dh = q.shape
     Sk = k.shape[1]
     k = _expand_kv(k, H, group_size)
@@ -100,19 +188,27 @@ def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
         ki = torch.arange(Sk, device=q.device)[None, :]
-        scores = torch.where((ki <= qi)[None, None], scores, -1e30)
+        scores = masked((ki <= qi)[None, None], scores)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 
 
 def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  q_chunk: int = 512, kv_chunk: int = 512, causal: bool = True,
-                 group_size: Optional[int] = None) -> torch.Tensor:
+                 group_size: Optional[int] = None,
+                 ctx: Optional[Ctx] = None) -> torch.Tensor:
     """Blockwise online-softmax attention (no ``S x S`` tensor).
 
     A q block visits only the kv blocks up to its own last position when
     ``causal`` (the reference's triangular bucketing, at the granularity of
-    one q block)."""
+    one q block).  Under a mesh the block loops run on each rank's heads
+    (:func:`_local_heads`): the reference pins the expanded kv blocks and
+    the queries head-sharded before its block scans; here no block is
+    ever resharded.  (``ctx`` is the reference's argument; the layout is
+    the queries'.)"""
+    if isinstance(q, DTensor):
+        return _local_heads(attn_chunked, q, k, v, group_size,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk, causal=causal)
     B, S, H, dh = q.shape
     dv = v.shape[-1]
     qc = min(q_chunk, S)
@@ -139,7 +235,7 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if causal:
                 qpos = qi * qc + torch.arange(qc, device=q.device)[:, None]
                 kpos = j * kc + torch.arange(kc, device=q.device)[None, :]
-                s = torch.where((kpos <= qpos)[None, None], s, -1e30)
+                s = masked((kpos <= qpos)[None, None], s)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -156,17 +252,70 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # decoding
 # ---------------------------------------------------------------------------
 
+def _local_heads(fn, q: DTensor, k, v, group_size, **kw) -> DTensor:
+    """``fn`` (:func:`attn_full`, :func:`attn_chunked`) as a local region
+    on each rank's heads (batch and heads split like the queries: every
+    head's attention is its own), the output laid out like the queries.
+    Keys and values with as many heads as the queries are split like them;
+    fewer (GQA) are taken whole and expanded to this rank's query heads
+    locally."""
+    mesh, pl = q.device_mesh, list(q.placements)
+    H = q.shape[2]
+    heads = {i for i, p in enumerate(pl) if p == Shard(2)}
+    h0, hl = local_offset(q, 2), q.to_local().shape[2]
+
+    def local_kv(t):
+        if t.shape[2] == H:
+            return t.redistribute(mesh, pl).to_local()
+        whole = [Replicate() if i in heads else p for i, p in enumerate(pl)]
+        t = to_local(t.redistribute(mesh, whole), heads)
+        return _expand_kv(t, H, group_size)[:, :, h0:h0 + hl]
+    out = fn(q.to_local(), local_kv(k), local_kv(v), **kw).contiguous()
+    return from_local(out, mesh, pl, tuple(q.shape[:3]) + (v.shape[3],))
+
+
 def update_cache(cache: torch.Tensor, new: torch.Tensor, pos,
-                 seq_axis: int = 1) -> torch.Tensor:
+                 ctx: Ctx = NOCTX, seq_axis: int = 1) -> torch.Tensor:
     """Write one decode step into ``cache`` at position ``pos`` along
     ``seq_axis``, in place, and return it (the reference's
     ``dynamic_update_slice`` on a donated, aliased buffer).  Called once per
     step on the layer-stacked cache.  ``new`` has length 1 on that axis;
     ``pos`` is an int or a 0-d tensor on the cache's device (no wait for the
-    card) and must lie inside the cache."""
-    idx = torch.as_tensor(pos, device=cache.device).reshape(1).to(
-        torch.int64)
-    return cache.index_copy_(seq_axis, idx, new.to(cache.dtype))
+    card) and must lie inside the cache.
+
+    Under a mesh the cache is a ``DTensor`` whose length axis may be split
+    (over ``model`` at serving): each rank writes into its own shard at
+    ``pos - shard * S_local``, clipped into the shard, the new values where
+    that offset lies inside it and the shard's own values elsewhere (the
+    reference's ``shard_map`` branch ``upd``).  ``new`` is laid out like the
+    cache with its length axis whole; no cache is gathered and ``pos`` is
+    never read on the host."""
+    if ctx.mesh is None:
+        idx = torch.as_tensor(pos, device=cache.device).reshape(1).to(
+            torch.int64)
+        return cache.index_copy_(seq_axis, idx, new.to(cache.dtype))
+    mesh = ctx.mesh
+    pl = list(cache.placements)
+    npl = [Replicate() if isinstance(p, Shard) and p.dim == seq_axis else p
+           for p in pl]
+    if not isinstance(new, DTensor):
+        new = shd.distribute_tensor(new, mesh, npl, src_data_rank=None)
+    n_loc = new.redistribute(mesh, npl).to_local()
+    c_loc = cache.to_local()
+    shard = 0
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == seq_axis:
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+    s_loc = c_loc.shape[seq_axis]
+    p_loc = pos.to_local() if isinstance(pos, DTensor) else pos
+    off = torch.as_tensor(p_loc, device=c_loc.device).to(torch.int64) \
+        - shard * s_loc
+    inb = (off >= 0) & (off < s_loc)
+    off_c = off.clamp(0, s_loc - 1).reshape(1)
+    cur = c_loc.index_select(seq_axis, off_c)
+    c_loc.index_copy_(seq_axis, off_c,
+                      torch.where(inb, n_loc.to(c_loc.dtype), cur))
+    return cache
 
 
 def softmax_with_self(s: torch.Tensor, s_self: torch.Tensor):
@@ -182,7 +331,7 @@ def softmax_with_self(s: torch.Tensor, s_self: torch.Tensor):
 
 def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 pos, k_new: Optional[torch.Tensor] = None,
-                v_new: Optional[torch.Tensor] = None,
+                v_new: Optional[torch.Tensor] = None, ctx: Ctx = NOCTX,
                 group_size: Optional[int] = None) -> torch.Tensor:
     """One-step attention: q ``(B,1,H,dh)`` against the OLD cache
     ``(B,S,Hkv,dh)`` plus the new token's own k/v ``(B,1,Hkv,dh)`` as an
@@ -192,16 +341,23 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     With ``group_size`` and ``H == Hkv * group_size`` the grouped form
     contracts each query group against its kv head and never expands the
     cache; otherwise the kv heads are expanded to the query heads.  Scores
-    and softmax in f32, products in the operands' dtype."""
+    and softmax in f32, products in the operands' dtype.  Under a mesh the
+    scores are pinned to the cache's length sharding (``kv_seq``): the
+    softmax's maximum and sum become reductions over cache shards."""
     B, _, H, dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     scale = 1.0 / math.sqrt(dh)
+    # the query's heads whole: the cache's length may be split over the
+    # axis that splits them, and a head split need not split into (kv
+    # head, group)
+    q = ctx.constrain(q, "batch", None, None, None)
     if group_size and H == Hkv * group_size:
         qg = q.reshape(B, 1, Hkv, group_size, dh)
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).to(
             torch.float32) * scale
+        s = ctx.constrain(s, "batch", None, None, None, "kv_seq")
         mask = torch.arange(S, device=q.device) < pos
-        s = torch.where(mask, s, -1e30)
+        s = masked(mask, s)
         if k_new is not None:
             s_self = torch.einsum("bqkgd,bskd->bkgqs", qg, k_new).to(
                 torch.float32) * scale
@@ -217,8 +373,9 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     k = _expand_kv(k_cache, H, group_size)
     v = _expand_kv(v_cache, H, group_size)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    scores = ctx.constrain(scores, "batch", None, None, "kv_seq")
     mask = torch.arange(S, device=q.device) < pos
-    scores = torch.where(mask, scores, -1e30)
+    scores = masked(mask, scores)
     if k_new is not None:
         kn = _expand_kv(k_new, H, group_size)
         vn = _expand_kv(v_new, H, group_size)
@@ -258,44 +415,55 @@ def moe_router(x: torch.Tensor, wr: torch.Tensor, top_k: int):
 
 
 def moe_dispatch(gates: torch.Tensor, idx: torch.Tensor, n_experts: int,
-                 capacity: int):
+                 capacity: int, expert_offset=0):
     """The capacity dispatch buffers ``(buf_t, buf_g)``, each
     ``(n_experts, capacity)``: slot ``(e, c)`` holds token index + 1 (0:
     empty) and its gate.
 
     An assignment's rank within its expert is its place in the cumulative
     count over the ``T * k`` flattened assignments, token-major; ranks at or
-    past ``capacity`` are dropped, exactly the reference's tokens."""
+    past ``capacity`` are dropped, exactly the reference's tokens.  The
+    experts are ids ``expert_offset .. expert_offset + n_experts - 1`` (an
+    expert-parallel shard's own); assignments to other experts are not
+    this shard's and take no slot."""
     T, k = idx.shape
     dev = idx.device
-    flat_e = idx.reshape(-1)
+    flat_e = idx.reshape(-1) - expert_offset
     flat_g = gates.reshape(-1)
     flat_t = torch.arange(T, device=dev).repeat_interleave(k)
-    onehot = F.one_hot(flat_e, n_experts)
+    mine = (flat_e >= 0) & (flat_e < n_experts)
+    e_safe = torch.where(mine, flat_e, 0)
+    onehot = F.one_hot(e_safe, n_experts) * mine[:, None]
     rank = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=1)
-    keep = rank < capacity
+    keep = mine & (rank < capacity)
     slot_r = torch.where(keep, rank, capacity)  # dropped: the dump column
     buf_t = torch.zeros((n_experts, capacity + 1), dtype=torch.int64,
                         device=dev)
-    buf_t[flat_e, slot_r] = torch.where(keep, flat_t + 1, 0)
+    buf_t[e_safe, slot_r] = torch.where(keep, flat_t + 1, 0)
     buf_g = torch.zeros((n_experts, capacity + 1), dtype=flat_g.dtype,
                         device=dev)
-    buf_g[flat_e, slot_r] = torch.where(keep, flat_g, 0.0)
+    buf_g[e_safe, slot_r] = torch.where(keep, flat_g, 0.0)
     return buf_t[:, :capacity], buf_g[:, :capacity]
 
 
 def moe_expert_compute(x_flat: torch.Tensor, gates: torch.Tensor,
                        idx: torch.Tensor, w_gate: torch.Tensor,
                        w_up: torch.Tensor, w_down: torch.Tensor, *,
-                       capacity: int) -> torch.Tensor:
+                       capacity: int, expert_offset=0) -> torch.Tensor:
     """Capacity dispatch over the experts ``w_*`` (``(E, d, f)``,
     ``(E, d, f)``, ``(E, f, d)``, the reference's layout): each expert runs
     SwiGLU on its ``capacity`` slots (empty slots are zero rows), outputs
     are scaled by their gates and summed back per token.  x_flat ``(T, d)``,
     idx ``(T, k)`` expert ids; returns ``(T, d)``.  Every expert's weights
-    are read whatever the batch (the dispatch is dense over experts)."""
+    are read whatever the batch (the dispatch is dense over experts).  The
+    experts ``w_*`` are ids ``expert_offset ..`` (an expert-parallel
+    shard's; the output then sums over them only); a shard without
+    experts returns zeros."""
     T, d = x_flat.shape
-    buf_t, buf_g = moe_dispatch(gates, idx, w_gate.shape[0], capacity)
+    if w_gate.shape[0] == 0:
+        return x_flat.new_zeros((T, d))
+    buf_t, buf_g = moe_dispatch(gates, idx, w_gate.shape[0], capacity,
+                                expert_offset)
     occupied = buf_t > 0
     xg = x_flat[torch.clamp_min(buf_t - 1, 0)]           # (E, C, d)
     xg = xg * occupied[..., None].to(xg.dtype)
@@ -309,26 +477,149 @@ def moe_expert_compute(x_flat: torch.Tensor, gates: torch.Tensor,
     return out[1:]
 
 
-def moe_block(p, x: torch.Tensor, cfg):
+def moe_block(p, x: torch.Tensor, cfg, ctx: Ctx = NOCTX):
     """The MoE layer on x ``(B, S, d)``: routed experts over all ``B * S``
     tokens with ``capacity = max(8, int(T * k * capacity_factor) // E)``,
     plus the shared experts as one dense SwiGLU.  ``p`` holds ``router``
     (``nn.Linear``), ``w_gate``/``w_up``/``w_down`` (expert stacks) and, with
     ``cfg.n_shared_experts``, ``shared`` (``wg``/``wu``/``wd``).  Returns
-    ``(out, aux)``."""
-    B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    xf = x.reshape(T, d)
-    gates, idx, aux = moe_router(xf, p.router.weight, k)
-    cap = max(8, int(T * k * cfg.capacity_factor) // E)
-    out = moe_expert_compute(xf, gates, idx, p.w_gate, p.w_up, p.w_down,
-                             capacity=cap)
-    out = out.reshape(x.shape)
+    ``(out, aux)``.
+
+    Under a mesh the routed experts run expert-parallel
+    (:func:`_moe_sharded`): each shard routes its own tokens, so ``T``, the
+    capacity and the drops are per data shard, as in the reference's
+    ``shard_map`` branch."""
+    if ctx.mesh is not None:
+        out, aux = _moe_sharded(p, x, cfg, ctx)
+    else:
+        B, S, d = x.shape
+        T = B * S
+        xf = x.reshape(T, d)
+        gates, idx, aux = moe_router(xf, p.router.weight, cfg.top_k)
+        out = moe_expert_compute(xf, gates, idx, p.w_gate, p.w_up, p.w_down,
+                                 capacity=moe_capacity(T, cfg))
+        out = out.reshape(x.shape)
     if cfg.n_shared_experts:
         sh = p.shared
         out = out + gated_mlp(x, sh.wg.weight, sh.wu.weight, sh.wd.weight)
     return out, aux
+
+
+def moe_capacity(T: int, cfg) -> int:
+    """Slots per expert for ``T`` routed tokens."""
+    return max(8, int(T * cfg.top_k * cfg.capacity_factor) // cfg.n_experts)
+
+
+def _moe_sharded(p, x, cfg, ctx: Ctx):
+    """The reference's ``shard_map`` branch of ``moe_block`` as a local
+    region.  Tokens are split over the batch axes and whole over ``model``,
+    the router is whole, the experts are split over ``model``; each rank
+    routes its tokens to its experts (ids from its shard's offset) and its
+    partial output is summed over ``model`` by one all-reduce.  The aux
+    loss is averaged over ``model`` and, as the reference returns it from
+    one replicated output, is data shard 0's, while its gradient is that
+    of the mean over the data shards (the reference's transpose)."""
+    mesh = ctx.mesh
+    names = list(mesh.mesh_dim_names)
+    x_pl = shd.sharding(mesh, ctx.rules, "batch", None, None,
+                        shape=tuple(x.shape))
+    # ranks differ along the batch's mesh axes (their tokens) and along
+    # model (their experts)
+    batch_dims = {i for i, pl in enumerate(x_pl) if isinstance(pl, Shard)}
+    model_dims = {names.index("model")} if "model" in names else set()
+    x_loc = to_local(ctx.constrain(x, "batch", None, None), model_dims)
+    rep = [Replicate()] * len(names)
+    wr = to_local(p.router.weight.redistribute(mesh, rep),
+                  batch_dims | model_dims)
+    e_pl = [Shard(0) if n == "model" else Replicate() for n in names]
+    ws = [w.redistribute(mesh, e_pl) for w in (p.w_gate, p.w_up, p.w_down)]
+    shift = local_offset(ws[0], 0)
+    B, S, d = x_loc.shape
+    T = B * S
+    xf = x_loc.reshape(T, d)
+    gates, idx, aux = moe_router(xf, wr, cfg.top_k)
+    out = moe_expert_compute(xf, gates, idx,
+                             *(to_local(w, batch_dims) for w in ws),
+                             capacity=moe_capacity(T, cfg),
+                             expert_offset=shift)
+    # each rank's partial output enters the sum once: its gradient is the
+    # whole one (grad_placements)
+    part = [Partial() if n == "model" else pl for n, pl in zip(names, x_pl)]
+    out = from_local(out.reshape(x_loc.shape), mesh, part, x.shape,
+                     grad_placements=x_pl).redistribute(mesh, x_pl)
+    # one aux per data shard: (n_shards,) split like the batch, summed over
+    # model; data shard 0's, divided by the model axis (pmean)
+    n_shards = 1
+    for n, pl in zip(names, x_pl):
+        n_shards *= mesh.size(names.index(n)) if isinstance(pl, Shard) else 1
+    a_pl = [Partial() if n == "model" else
+            Shard(0) if isinstance(pl, Shard) else Replicate()
+            for n, pl in zip(names, x_pl)]
+    auxes = from_local(aux.reshape(1), mesh, a_pl, (n_shards,),
+                       grad_placements=[Replicate() if isinstance(p, Partial)
+                                        else p for p in a_pl])
+    tp = mesh.size(names.index("model")) if "model" in names else 1
+    auxes = auxes.redistribute(mesh, [Replicate()] * len(names)) / tp
+    # the reference's value is data shard 0's, its gradient that of the
+    # mean over data shards (each shard's cotangent is the replicated
+    # output's): that value, that gradient
+    mean = auxes.mean()
+    return out, auxes[0].detach() + (mean - mean.detach())
+
+
+def to_local(t: DTensor, vary=()) -> torch.Tensor:
+    """This rank's shard of ``t`` for a local region whose ranks compute
+    different things along the mesh axes ``vary`` (indices): there a
+    replicated input's gradient is partial, one share per rank, and is
+    summed (the transpose of a ``shard_map`` input that is replicated
+    over an axis the region maps over)."""
+    return t.to_local(grad_placements=[
+        Partial() if i in vary and isinstance(p, Replicate) else p
+        for i, p in enumerate(t.placements)])
+
+
+class _FromLocal(torch.autograd.Function):
+    """``DTensor.from_local`` whose gradient is laid out by
+    ``grad_placements`` before it reaches the local tensor (the keyword
+    that newer releases of ``from_local`` take)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, placements, grad_placements, shape,
+                stride):
+        ctx.mesh, ctx.grad_placements = mesh, grad_placements
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=shape, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.redistribute(ctx.mesh, ctx.grad_placements).to_local()
+        return grad, None, None, None, None, None
+
+
+def from_local(local: torch.Tensor, mesh, placements, shape,
+               grad_placements=None) -> DTensor:
+    """``local``, this rank's part, as a ``DTensor`` of global ``shape``
+    (row-major) laid out by ``placements``; with ``grad_placements`` its
+    gradient reaches ``local`` laid out by those (a ``Partial`` part whose
+    every rank's share enters the sum once gets the whole gradient:
+    ``Replicate``)."""
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    if grad_placements is None:
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=shape, stride=stride)
+    return _FromLocal.apply(local, mesh, tuple(placements),
+                            tuple(grad_placements), shape, stride)
+
+
+def local_offset(t: DTensor, dim: int):
+    """The global index of this rank's first element of ``t`` along
+    ``dim``."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    _, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return offset[dim]
 
 
 # ---------------------------------------------------------------------------
@@ -373,8 +664,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # intra-chunk (quadratic in c): y[t] = sum_{s<=t} C_t.B_s decay x_s dt_s
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,k,c,s,H)
     tri = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
-    decay = torch.exp(torch.where(tri[None, None, :, :, None], diff,
-                                  float("-inf")))
+    decay = torch.exp(masked(tri[None, None, :, :, None], diff,
+                             float("-inf")))
     cb = torch.einsum("bkcgn,bksgn->bkgcs", Cs, Bs).to(f32)
     att = cb[:, :, :, None] * decay.permute(0, 1, 4, 2, 3).reshape(
         Bsz, nc, G, rep, c, c)                        # (B,k,G,r,c,s)

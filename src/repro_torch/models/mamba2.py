@@ -26,8 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import common
-from repro_torch.models.layers import (causal_conv1d, rms_norm, ssd_chunked,
-                                       ssd_step)
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.models.layers import (NOCTX, Ctx, causal_conv1d, from_local,
+                                       rms_norm, ssd_chunked, ssd_step,
+                                       to_local)
 from repro_torch.models.params import ParamDef
 
 
@@ -79,25 +82,45 @@ def _split_proj(proj: torch.Tensor, cfg):
 
 
 def ssm_block(p: SSMBlock, h: torch.Tensor, cfg, conv_cache=None,
-              state=None):
+              state=None, ctx: Ctx = NOCTX):
     """The block on ``h`` (B, S, d): returns ``(out, (new conv window, new
     state))``.  Without a ``state`` the whole sequence is scanned (padded
     to a multiple of ``c = min(ssm_chunk, S)`` with ``dt = 0`` steps, which
     leave the state as it is); with one, ``S`` is 1 and one recurrence
-    step runs from it."""
-    Bsz, S, _ = h.shape
+    step runs from it.
+
+    Under a mesh the projection is laid out over the tensor axis (the
+    reference's constraint) and the part between the two projections
+    (:func:`_ssm_core`) runs as a local region on each rank's sequences,
+    with the tensor axis whole: the z | x | B | C | dt split of one
+    projection does not follow its shards."""
+    proj = p.w_in(rms_norm(h, p.ln))
+    proj = ctx.constrain(proj, "batch", "seq", "tensor")
+    weights = (p.conv_w, p.A_log, p.D, p.dt_bias, p.out_norm)
+    if ctx.mesh is None:
+        y, caches = _ssm_core(proj, weights, cfg, conv_cache, state)
+    else:
+        y, caches = _ssm_core_sharded(proj, weights, cfg, conv_cache, state,
+                                      ctx)
+    return ctx.constrain(p.w_out(y), "batch", "seq", None), caches
+
+
+def _ssm_core(proj, weights, cfg, conv_cache, state):
+    """From the input projection to the gated, normalised output (before
+    ``w_out``): ``(y (B, S, d_inner), (new conv window, new state))``."""
+    conv_w, A_log, D, dt_bias, out_norm = weights
+    Bsz, S, _ = proj.shape
     di = cfg.d_inner
     G, N, H, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
-    proj = p.w_in(rms_norm(h, p.ln))
     z, x, Bm, Cm, dtr = _split_proj(proj, cfg)
     conv_out, new_conv = causal_conv1d(torch.cat([x, Bm, Cm], dim=-1),
-                                       p.conv_w, conv_cache)
+                                       conv_w, conv_cache)
     x, Bm, Cm = conv_out.split([di, G * N, G * N], dim=-1)
     f32 = torch.float32
-    dt = F.softplus(dtr.to(f32) + p.dt_bias.to(f32))
-    A = -torch.exp(p.A_log.to(f32))
-    D = p.D.to(f32)
+    dt = F.softplus(dtr.to(f32) + dt_bias.to(f32))
+    A = -torch.exp(A_log.to(f32))
+    D = D.to(f32)
     xh = x.reshape(Bsz, S, H, P)
     Bh = Bm.reshape(Bsz, S, G, N)
     Ch = Cm.reshape(Bsz, S, G, N)
@@ -116,20 +139,46 @@ def ssm_block(p: SSMBlock, h: torch.Tensor, cfg, conv_cache=None,
                                 state)
         y = y[:, None]
     y = y.reshape(Bsz, S, di)
-    y = rms_norm(y * F.silu(z.to(f32)).to(y.dtype), p.out_norm)
-    return p.w_out(y), (new_conv, new_state)
+    y = rms_norm(y * F.silu(z.to(f32)).to(y.dtype), out_norm)
+    return y, (new_conv, new_state)
 
 
-def _ssm_fn(cfg, want_cache: bool):
+def _ssm_core_sharded(proj, weights, cfg, conv_cache, state, ctx: Ctx):
+    """:func:`_ssm_core` as a local region: activations and caches split
+    over the batch's mesh axes only, the block's small weights whole."""
+    mesh = ctx.mesh
+
+    def batch_only(t):
+        return ctx.constrain(t, "batch", *(None,) * (t.ndim - 1))
+
+    proj = batch_only(proj)
+    pl = proj.placements
+    vary = {i for i, q in enumerate(pl) if isinstance(q, Shard)}
+    rep = [Replicate()] * mesh.ndim
+    ws = tuple(to_local(w.redistribute(mesh, rep), vary) for w in weights)
+    cc = None if conv_cache is None else to_local(batch_only(conv_cache))
+    st = None if state is None else to_local(batch_only(state))
+    y, (nc, ns) = _ssm_core(to_local(proj), ws, cfg, cc, st)
+    Bsz = proj.shape[0]
+
+    def out(t):
+        return from_local(t.contiguous(), mesh, pl,
+                          (Bsz,) + tuple(t.shape[1:]))
+    return out(y), (out(nc), out(ns))
+
+
+def _ssm_fn(cfg, want_cache: bool, ctx: Ctx = NOCTX):
     """The layer function of :func:`common.scan_blocks`."""
     def fn(carry, p: SSMBlock):
         h, extra = carry
-        out, cache = ssm_block(p, h, cfg)
-        return (h + out, extra), (cache if want_cache else None)
+        out, cache = ssm_block(p, h, cfg, ctx=ctx)
+        return (ctx.constrain(h + out, "batch", "seq", None), extra), \
+            (cache if want_cache else None)
     return fn
 
 
-def decode_layers(layers, h, cache: dict, cfg, lo: int = 0):
+def decode_layers(layers, h, cache: dict, cfg, lo: int = 0,
+                  ctx: Ctx = NOCTX):
     """One token through ``layers`` (the stack's layers ``lo``, ``lo + 1``,
     ...), each from its conv window and state in ``cache``, which are
     overwritten in place with the new ones (cast to the cache's dtypes, as
@@ -137,7 +186,7 @@ def decode_layers(layers, h, cache: dict, cfg, lo: int = 0):
     conv, state = cache["conv"], cache["state"]
     for i, p in enumerate(layers, start=lo):
         out, (c, st) = ssm_block(p, h, cfg, conv_cache=conv[i],
-                                 state=state[i])
+                                 state=state[i], ctx=ctx)
         h = h + out
         conv[i].copy_(c)
         state[i].copy_(st)
@@ -147,7 +196,7 @@ def decode_layers(layers, h, cache: dict, cfg, lo: int = 0):
 class Mamba2Model(nn.Module):
     """Embedding, ``cfg.n_layers`` SSM blocks, final norm and output head."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp: int = 1):
         super().__init__()
         self.cfg = cfg
         V, d = cfg.vocab_padded(), cfg.d_model
@@ -157,17 +206,17 @@ class Mamba2Model(nn.Module):
         self.layers = nn.ModuleList(SSMBlock(cfg)
                                     for _ in range(cfg.n_layers))
 
-    def forward(self, batch: dict, return_hidden: bool = False,
-                return_cache: bool = False):
+    def forward(self, batch: dict, ctx: Ctx = NOCTX,
+                return_hidden: bool = False, return_cache: bool = False):
         cfg = self.cfg
-        h = common.embed_tokens(self, batch["tokens"])
-        h = common.maybe_prepend_embeds(h, batch)
+        h = common.embed_tokens(self, batch["tokens"], ctx)
+        h = common.maybe_prepend_embeds(h, batch, ctx)
         h, _, ys = common.scan_blocks(
-            _ssm_fn(cfg, return_cache), h, self.layers,
+            _ssm_fn(cfg, return_cache, ctx), h, self.layers,
             remat=(cfg.remat == "block") and not return_cache)
         if return_hidden:
             return h
-        logits = common.unembed(self, h)
+        logits = common.unembed(self, h, ctx)
         if not return_cache:
             return logits
         return logits, {"conv": ys[0], "state": ys[1],
@@ -175,10 +224,11 @@ class Mamba2Model(nn.Module):
                                           dtype=torch.int32,
                                           device=h.device)}
 
-    def decode(self, cache: dict, tokens: torch.Tensor):
-        h = common.embed_tokens(self, tokens)
-        h = decode_layers(self.layers, h, cache, self.cfg)
-        return common.unembed(self, h), {**cache, "pos": cache["pos"] + 1}
+    def decode(self, cache: dict, tokens: torch.Tensor, ctx: Ctx = NOCTX):
+        h = common.embed_tokens(self, tokens, ctx)
+        h = decode_layers(self.layers, h, cache, self.cfg, ctx=ctx)
+        return common.unembed(self, h, ctx), {**cache,
+                                              "pos": cache["pos"] + 1}
 
 
 def cache_defs(cfg, B: int, S: int) -> dict:
@@ -198,26 +248,30 @@ def cache_defs(cfg, B: int, S: int) -> dict:
     }
 
 
-def build(cfg, params, *, dtype=None, device=None) -> Mamba2Model:
+def build(cfg, params, *, dtype=None, device=None,
+          tp: int = 1) -> Mamba2Model:
     """A :class:`Mamba2Model` holding ``params`` (a tree in the reference's
     layout, see :func:`param_defs`), on ``device`` (default: the card),
     cast to ``dtype`` if given.  Built for inference: no gradients."""
-    return common.build(Mamba2Model, cfg, params, dtype=dtype, device=device)
+    return common.build(Mamba2Model, cfg, params, dtype=dtype, device=device,
+                        tp=tp)
 
 
-def forward(params: Mamba2Model, batch: dict, cfg,
+def forward(params: Mamba2Model, batch: dict, cfg, ctx: Ctx = NOCTX,
             return_cache: bool = False, return_hidden: bool = False):
     """The reference's ``forward(params, batch, cfg)``: logits (B, S, V), or
     the hidden states (B, S, d) before the final norm, or with
     ``return_cache`` the logits and the prefill cache (``conv``, ``state``,
     ``pos``).  Inference mode unless the parameters require gradients and
     autograd is enabled (the trainer's network)."""
-    return common.forward(params, batch, cfg, return_hidden=return_hidden,
+    return common.forward(params, batch, cfg, ctx,
+                          return_hidden=return_hidden,
                           return_cache=return_cache)
 
 
-def decode_step(params: Mamba2Model, cache: dict, tokens: torch.Tensor, cfg):
+def decode_step(params: Mamba2Model, cache: dict, tokens: torch.Tensor, cfg,
+                ctx: Ctx = NOCTX):
     """One decode step: ``tokens`` (B, 1) at position ``cache["pos"] + 1``
     -> ``(logits (B, 1, V), cache)``; the cache's ``conv`` and ``state`` are
     updated in place and returned with the new ``pos``."""
-    return common.decode_step(params, cache, tokens, cfg)
+    return common.decode_step(params, cache, tokens, cfg, ctx)

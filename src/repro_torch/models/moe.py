@@ -11,9 +11,10 @@ and decoding uses the *absorbed* form: scores and context in latent space,
 
 MoE: token-choice top-k routing with capacity dispatch over every expert
 (``layers.moe_block``); shared experts and the first
-``first_dense_layers`` dense blocks run as plain SwiGLU.  One card holds
-every expert: the reference's expert-parallel ``shard_map`` branch has no
-counterpart.
+``first_dense_layers`` dense blocks run as plain SwiGLU.  Under a mesh
+(``Ctx``) the routed experts run expert-parallel over ``model``
+(``layers.moe_block``'s local region, the reference's ``shard_map``
+branch).
 
 One :class:`MLABlock` per layer holds that layer's parameters under the
 reference's names: projections as ``nn.Linear``, the expert stacks
@@ -27,13 +28,15 @@ dense transformer's ``pos`` convention.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.models import common
-from repro_torch.models.layers import (apply_rope, attn_chunked, attn_full,
-                                       gated_mlp, moe_block, rms_norm,
+from repro_torch.models.layers import (NOCTX, Ctx, apply_rope, attn_chunked,
+                                       attn_full, gated_mlp, masked,
+                                       moe_block, replicated_like, rms_norm,
                                        rope_tables, softmax_with_self,
                                        update_cache)
 from repro_torch.models.params import ParamDef
@@ -122,12 +125,13 @@ class _SwiGLU(nn.Module):
 
 
 class MLABlock(nn.Module):
-    """One decoder layer: pre-norm MLA, then a pre-norm dense SwiGLU
-    (``moe=False``) or MoE layer."""
+    """One decoder layer: pre-norm MLA (heads padded to a multiple of
+    ``tp``), then a pre-norm dense SwiGLU (``moe=False``) or MoE layer."""
 
-    def __init__(self, cfg, moe: bool):
+    def __init__(self, cfg, moe: bool, tp: int = 1):
         super().__init__()
-        d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora
+        d, H, r = cfg.d_model, cfg.heads_padded(tp), cfg.kv_lora
+        self.n_heads = H
         nope, rope_d, vd = (cfg.nope_head_dim, cfg.rope_head_dim,
                             cfg.v_head_dim)
         self.ln1 = nn.Parameter(torch.empty(d))
@@ -165,7 +169,7 @@ def _queries(p: MLABlock, x: torch.Tensor, cfg, cos, sin):
         q = p.wuq(rms_norm(p.wdq(x), p.q_norm))
     else:
         q = p.wq(x)
-    q = q.view(B, S, cfg.n_heads, cfg.nope_head_dim + cfg.rope_head_dim)
+    q = q.view(B, S, p.n_heads, cfg.nope_head_dim + cfg.rope_head_dim)
     nope = cfg.nope_head_dim
     return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
 
@@ -178,11 +182,12 @@ def _latents(p: MLABlock, x: torch.Tensor, cos, sin):
     return ckv, k_rope
 
 
-def _mla_qkv(p: MLABlock, x: torch.Tensor, cfg, cos, sin):
+def _mla_qkv(p: MLABlock, x: torch.Tensor, cfg, cos, sin, ctx: Ctx = NOCTX,
+             hmask=None):
     """Full (decompressed) MLA q/k/v for train and prefill, and the
     latents the cache keeps."""
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = p.n_heads
     q_nope, q_rope = _queries(p, x, cfg, cos, sin)
     ckv, k_rope = _latents(p, x, cos, sin)
     k_nope = p.wuk(ckv).view(B, S, H, cfg.nope_head_dim)
@@ -190,33 +195,46 @@ def _mla_qkv(p: MLABlock, x: torch.Tensor, cfg, cos, sin):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, cfg.rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
+    if hmask is not None:
+        q = q * hmask[None, None, :, None]
+    q = ctx.constrain(q, "batch", "seq", "tensor", None)
     return q, k, v, ckv, k_rope
 
 
-def _attn_out(p: MLABlock, o: torch.Tensor) -> torch.Tensor:
-    return p.wo(o.flatten(2))
+def _attn_out(p: MLABlock, o: torch.Tensor, ctx: Ctx = NOCTX,
+              hmask=None) -> torch.Tensor:
+    if hmask is not None:
+        o = o * hmask[None, None, :, None]
+    return ctx.constrain(p.wo(o.flatten(2)), "batch", "seq", None)
 
 
-def _mla_block(p: MLABlock, h, cfg, cos, sin, use_full: bool):
+def _mla_block(p: MLABlock, h, cfg, cos, sin, use_full: bool,
+               ctx: Ctx = NOCTX, hmask=None):
     x = rms_norm(h, p.ln1)
-    q, k, v, ckv, krope = _mla_qkv(p, x, cfg, cos, sin)
+    q, k, v, ckv, krope = _mla_qkv(p, x, cfg, cos, sin, ctx, hmask)
     if use_full:
         o = attn_full(q, k, v)
     else:
         o = attn_chunked(q, k, v, q_chunk=cfg.attn_chunk,
-                         kv_chunk=cfg.attn_chunk)
-    return h + _attn_out(p, o), (ckv, krope)
+                         kv_chunk=cfg.attn_chunk, ctx=ctx)
+    return h + _attn_out(p, o, ctx, hmask), (
+        ctx.constrain(ckv, "batch", "kv_seq", None),
+        ctx.constrain(krope, "batch", "kv_seq", None))
 
 
-def _mla_decode_attn(p: MLABlock, x, ckv_c, kr_c, pos, cfg, cos, sin):
+def _mla_decode_attn(p: MLABlock, x, ckv_c, kr_c, pos, cfg, cos, sin,
+                     ctx: Ctx = NOCTX, hmask=None):
     """Absorbed-MLA decode: scores and context in latent space.
 
     Reads the OLD latent cache (``(B, S, kv_lora)``, ``(B, S, rope)``,
     masked at ``>= pos``) plus an explicit self-token term; returns the
     attention output and the new token's latents for the cache write."""
     nope, rope_d, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    H, r = cfg.n_heads, cfg.kv_lora
+    H, r = p.n_heads, cfg.kv_lora
     q_nope, q_rope = _queries(p, x, cfg, cos, sin)
+    if hmask is not None:
+        q_nope = q_nope * hmask[None, None, :, None]
+        q_rope = q_rope * hmask[None, None, :, None]
     ckv_new, kr_new = _latents(p, x, cos, sin)
     scale = 1.0 / math.sqrt(nope + rope_d)
     # q_nope into latent space once per step: wuk as (H, nope, r)
@@ -224,9 +242,10 @@ def _mla_decode_attn(p: MLABlock, x, ckv_c, kr_c, pos, cfg, cos, sin):
                          p.wuk.weight.view(H, nope, r))
     s = torch.einsum("bshr,btr->bhst", q_lat, ckv_c) \
         + torch.einsum("bshk,btk->bhst", q_rope, kr_c)
-    s = s.to(torch.float32) * scale
+    s = ctx.constrain(s.to(torch.float32) * scale, "batch", None, None,
+                      "kv_seq")
     mask = torch.arange(ckv_c.shape[1], device=x.device) < pos
-    s = torch.where(mask, s, -1e30)
+    s = masked(mask, s)
     s_self = (torch.einsum("bshr,btr->bhst", q_lat, ckv_new)
               + torch.einsum("bshk,btk->bhst", q_rope, kr_new)
               ).to(torch.float32) * scale
@@ -239,13 +258,20 @@ def _mla_decode_attn(p: MLABlock, x, ckv_c, kr_c, pos, cfg, cos, sin):
     return o, ckv_new, kr_new
 
 
-def _dense_mlp(p: MLABlock, h):
+def _dense_mlp(p: MLABlock, h, ctx: Optional[Ctx] = None):
+    """The dense SwiGLU sublayer; with ``ctx`` its Megatron schedule pinned
+    and its output laid out like ``h`` (train and prefill)."""
     x = rms_norm(h, p.ln2)
-    return h + gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight)
+    mlp = gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight, ctx)
+    if ctx is not None:
+        mlp = ctx.constrain(mlp, "batch", "seq", None)
+    return h + mlp
 
 
-def _moe_mlp(p: MLABlock, h, cfg):
-    mo, aux = moe_block(p, rms_norm(h, p.ln2), cfg)
+def _moe_mlp(p: MLABlock, h, cfg, ctx: Ctx = NOCTX, constrain: bool = True):
+    mo, aux = moe_block(p, rms_norm(h, p.ln2), cfg, ctx)
+    if constrain:
+        mo = ctx.constrain(mo, "batch", "seq", None)
     return h + mo, aux
 
 
@@ -253,7 +279,7 @@ class MoEModel(nn.Module):
     """Embedding, ``first_dense_layers`` dense MLA blocks, the MoE MLA
     blocks, final norm and output head."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp: int = 1):
         super().__init__()
         self.cfg = cfg
         V, d = cfg.vocab_padded(), cfg.d_model
@@ -261,30 +287,34 @@ class MoEModel(nn.Module):
         self.tok = nn.Embedding(V, d)
         self.out = nn.Linear(d, V, bias=False)
         self.final_norm = nn.Parameter(torch.empty(d))
-        self.dense_layers = nn.ModuleList(MLABlock(cfg, moe=False)
+        self.dense_layers = nn.ModuleList(MLABlock(cfg, moe=False, tp=tp)
                                           for _ in range(nd))
-        self.moe_layers = nn.ModuleList(MLABlock(cfg, moe=True)
+        self.moe_layers = nn.ModuleList(MLABlock(cfg, moe=True, tp=tp)
                                         for _ in range(cfg.n_layers - nd))
 
-    def forward(self, batch: dict, return_hidden: bool = False,
-                return_cache: bool = False):
+    def forward(self, batch: dict, ctx: Ctx = NOCTX,
+                return_hidden: bool = False, return_cache: bool = False):
         cfg = self.cfg
-        h = common.embed_tokens(self, batch["tokens"])
-        h = common.maybe_prepend_embeds(h, batch)
+        h = common.embed_tokens(self, batch["tokens"], ctx)
+        h = common.maybe_prepend_embeds(h, batch, ctx)
         S = h.shape[1]
         cos, sin = rope_tables(torch.arange(S, device=h.device)[None, :],
                                cfg.rope_head_dim, cfg.rope_theta)
+        cos, sin = replicated_like(cos, h), replicated_like(sin, h)
+        hmask = common.head_mask(cfg, ctx.axis_size("tensor"), h.dtype,
+                                 h.device, like=h)
         use_full = S <= FULL_ATTN_MAX
 
         def dense_blk(carry, p):
             h, aux = carry
-            h, cache = _mla_block(p, h, cfg, cos, sin, use_full)
-            return (_dense_mlp(p, h), aux), (cache if return_cache else None)
+            h, cache = _mla_block(p, h, cfg, cos, sin, use_full, ctx, hmask)
+            return (_dense_mlp(p, h, ctx), aux), \
+                (cache if return_cache else None)
 
         def moe_blk(carry, p):
             h, aux = carry
-            h, cache = _mla_block(p, h, cfg, cos, sin, use_full)
-            h, a = _moe_mlp(p, h, cfg)
+            h, cache = _mla_block(p, h, cfg, cos, sin, use_full, ctx, hmask)
+            h, a = _moe_mlp(p, h, cfg, ctx)
             return (h, aux + a), (cache if return_cache else None)
 
         remat = (cfg.remat == "block") and not return_cache
@@ -295,7 +325,7 @@ class MoEModel(nn.Module):
                                          remat=remat, carry_extra=aux)
         if return_hidden:
             return h
-        logits = common.unembed(self, h)
+        logits = common.unembed(self, h, ctx)
         if not return_cache:
             return logits, aux
         return logits, aux, {
@@ -305,13 +335,15 @@ class MoEModel(nn.Module):
             "pos": torch.full((), S - 1, dtype=torch.int32,
                               device=h.device)}
 
-    def decode(self, cache: dict, tokens: torch.Tensor):
+    def decode(self, cache: dict, tokens: torch.Tensor, ctx: Ctx = NOCTX):
         cfg = self.cfg
         B = tokens.shape[0]
-        h = common.embed_tokens(self, tokens)
+        h = common.embed_tokens(self, tokens, ctx)
         pos = cache["pos"] + 1
         cos, sin = rope_tables(pos.expand(B, 1), cfg.rope_head_dim,
                                cfg.rope_theta)
+        hmask = common.head_mask(cfg, ctx.axis_size("tensor"), h.dtype,
+                                 h.device, like=h)
         new_cache = dict(cache)
         for stack, layers in (("dense", self.dense_layers),
                               ("moe", self.moe_layers)):
@@ -322,18 +354,18 @@ class MoEModel(nn.Module):
             for i, p in enumerate(layers):
                 x = rms_norm(h, p.ln1)
                 o, ckv, kr = _mla_decode_attn(p, x, ckv_c[i], kr_c[i], pos,
-                                              cfg, cos, sin)
-                h = h + _attn_out(p, o)
+                                              cfg, cos, sin, ctx, hmask)
+                h = h + _attn_out(p, o, ctx, hmask)
                 h = _dense_mlp(p, h) if stack == "dense" \
-                    else _moe_mlp(p, h, cfg)[0]
+                    else _moe_mlp(p, h, cfg, ctx, constrain=False)[0]
                 ckvs.append(ckv)
                 krs.append(kr)
             new_cache[f"{stack}_ckv"] = update_cache(
-                ckv_c, torch.stack(ckvs), pos, seq_axis=2)
+                ckv_c, torch.stack(ckvs), pos, ctx, seq_axis=2)
             new_cache[f"{stack}_kr"] = update_cache(
-                kr_c, torch.stack(krs), pos, seq_axis=2)
+                kr_c, torch.stack(krs), pos, ctx, seq_axis=2)
         new_cache["pos"] = pos
-        return common.unembed(self, h), new_cache
+        return common.unembed(self, h, ctx), new_cache
 
 
 def cache_defs(cfg, B: int, S: int) -> dict:
@@ -353,27 +385,30 @@ def cache_defs(cfg, B: int, S: int) -> dict:
     }
 
 
-def build(cfg, params, *, dtype=None, device=None) -> MoEModel:
+def build(cfg, params, *, dtype=None, device=None, tp: int = 1) -> MoEModel:
     """A :class:`MoEModel` holding ``params`` (a tree in the reference's
     layout, see :func:`param_defs`), on ``device`` (default: the card),
     cast to ``dtype`` if given.  Built for inference: no gradients."""
-    return common.build(MoEModel, cfg, params, dtype=dtype, device=device)
+    return common.build(MoEModel, cfg, params, dtype=dtype, device=device,
+                        tp=tp)
 
 
-def forward(params: MoEModel, batch: dict, cfg, return_cache: bool = False,
-            return_hidden: bool = False):
+def forward(params: MoEModel, batch: dict, cfg, ctx: Ctx = NOCTX,
+            return_cache: bool = False, return_hidden: bool = False):
     """The reference's ``forward(params, batch, cfg)``: ``(logits, aux)``;
     with ``return_cache`` ``(logits, aux, cache)`` (``dense_ckv``,
     ``dense_kr``, ``moe_ckv``, ``moe_kr`` ``(L, B, S, ...)`` and ``pos = S -
     1``); with ``return_hidden`` the hidden states before the final norm.
     Inference mode unless the parameters require gradients and autograd is
     enabled (the trainer's network)."""
-    return common.forward(params, batch, cfg, return_hidden=return_hidden,
+    return common.forward(params, batch, cfg, ctx,
+                          return_hidden=return_hidden,
                           return_cache=return_cache)
 
 
-def decode_step(params: MoEModel, cache: dict, tokens: torch.Tensor, cfg):
+def decode_step(params: MoEModel, cache: dict, tokens: torch.Tensor, cfg,
+                ctx: Ctx = NOCTX):
     """One absorbed-MLA decode step: ``tokens`` (B, 1) at position
     ``cache["pos"] + 1`` -> ``(logits (B, 1, V), cache)``; the latent caches
     are updated in place and returned with the new ``pos``."""
-    return common.decode_step(params, cache, tokens, cfg)
+    return common.decode_step(params, cache, tokens, cfg, ctx)

@@ -27,9 +27,10 @@ that tree
   (the reference's leaf order, which the optimizer keeps), and
   :func:`decay_mask` reads AdamW's weight-decay rule off the tree's shapes.
 
-The logical axes are the reference's: no partitioned program runs on one
-card, but ``launch/specs.py`` resolves them to per-device shapes on a
-mesh (``launch/sharding.py``) to size a cell.
+The logical axes are the reference's: :func:`distribute` lays a network's
+parameters (and :func:`distribute_tree` a cache) out on a ``DeviceMesh``
+by them (``launch/sharding.py``), as ``DTensor``s, and ``launch/specs.py``
+resolves them to per-device shapes to size a cell.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.launch import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,3 +224,55 @@ def params_to_jax(state: Dict[str, torch.Tensor], defs) -> dict:
         a = torch.stack(back) if stacked else back[0]
         _set(out, path, a.detach().cpu().numpy())
     return out
+
+
+def port_spec(leaf: str, spec_: tuple) -> tuple:
+    """The spec of a leaf's port tensor from the spec of its reference
+    layout (one layer's, without a stack's layers axis): an ``nn.Linear``
+    weight is ``(out, in)`` with each group of axes flattened (a group is
+    split like its first axis; the others are whole in every def), a
+    per-head bias is flattened, every other leaf keeps its layout."""
+    if leaf in _LINEAR_IN_AXES:
+        n_in = _LINEAR_IN_AXES[leaf]
+        groups = (spec_[n_in:], spec_[:n_in])
+    elif leaf in _BIAS_OF:
+        groups = (spec_,)
+    else:
+        return spec_
+    if any(ax is not None for g in groups for ax in g[1:]):
+        raise ValueError(f"{leaf}: split axis inside a flattened group "
+                         f"{spec_}")
+    return tuple(g[0] for g in groups)
+
+
+def distribute(model, defs, mesh, rules) -> None:
+    """Replace every parameter of ``model`` (built from ``defs``, its
+    module's ``param_defs(cfg, tp)``) by a ``DTensor`` on the
+    ``DeviceMesh`` ``mesh``, split by the def's logical axes under
+    ``rules`` (axes that do not divide a dimension stay whole).  Each rank
+    keeps its own shard of the values it holds, with no communication; a
+    ``meta`` network gets ``meta`` shards."""
+    for path, d, names in port_leaves(defs):
+        stacked = path[0] in STACKS
+        shape = d.shape[1:] if stacked else d.shape
+        axes = d.axes[1:] if stacked else d.axes
+        pl = shd.placements(mesh, port_spec(
+            path[-1], shd.spec(mesh, rules, *axes, shape=shape)))
+        for n in names:
+            mod_name, _, attr = n.rpartition(".")
+            mod = model.get_submodule(mod_name)
+            old = getattr(mod, attr)
+            new = distribute_tensor(old.detach(), mesh, pl,
+                                    src_data_rank=None)
+            setattr(mod, attr, torch.nn.Parameter(
+                new, requires_grad=old.requires_grad))
+
+
+def distribute_tree(tree: dict, defs: dict, mesh, rules) -> dict:
+    """The tensors of ``tree`` (a cache: keys of ``defs``, the module's
+    ``cache_defs``, in the reference's layout) as ``DTensor``s split by
+    their defs' logical axes, each rank keeping its shard of what it holds;
+    None entries stay None."""
+    return {k: None if t is None else
+            shd.constrain(t, mesh, rules, *defs[k].axes)
+            for k, t in tree.items()}

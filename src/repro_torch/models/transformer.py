@@ -33,8 +33,9 @@ import torch
 from torch import nn
 
 from repro_torch.models import common
-from repro_torch.models.layers import (apply_rope, attn_chunked, attn_decode,
-                                       attn_full, gated_mlp, rms_norm,
+from repro_torch.models.layers import (NOCTX, Ctx, apply_rope, attn_chunked,
+                                       attn_decode, attn_full, gated_mlp,
+                                       replicated_like, rms_norm,
                                        rope_tables, update_cache)
 from repro_torch.models.params import ParamDef
 
@@ -87,12 +88,14 @@ def param_defs(cfg, tp: int = 1) -> dict:
 
 
 class Block(nn.Module):
-    """One decoder layer: pre-norm attention and pre-norm SwiGLU MLP."""
+    """One decoder layer: pre-norm attention and pre-norm SwiGLU MLP, with
+    the query heads padded to a multiple of ``tp`` (the padding heads are
+    masked)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp: int = 1):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
-        H, Hkv = cfg.n_heads, cfg.n_kv_heads
+        H, Hkv = cfg.heads_padded(tp), cfg.n_kv_heads
         self.ln1 = nn.Parameter(torch.empty(d))
         self.ln2 = nn.Parameter(torch.empty(d))
         self.wq = nn.Linear(d, H * hd, bias=cfg.qkv_bias)
@@ -107,27 +110,39 @@ class Block(nn.Module):
             self.knorm = nn.Parameter(torch.empty(hd))
 
 
-def _qkv(p: Block, x: torch.Tensor, cfg, cos, sin):
+def _qkv(p: Block, x: torch.Tensor, cfg, cos, sin, ctx: Ctx = NOCTX,
+         hmask=None):
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = p.wq(x).view(B, S, -1, hd)
-    k = p.wk(x).view(B, S, -1, hd)
-    v = p.wv(x).view(B, S, -1, hd)
+    # the projections split by whole heads: kv heads only where the tensor
+    # axis divides them (the weights' own layout)
+    kv = _kv_axis(cfg, ctx.axis_size("tensor"))
+    q = ctx.constrain(p.wq(x), "batch", "seq", "tensor").view(B, S, -1, hd)
+    k = ctx.constrain(p.wk(x), "batch", "seq", kv).view(B, S, -1, hd)
+    v = ctx.constrain(p.wv(x), "batch", "seq", kv).view(B, S, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.qnorm)
         k = rms_norm(k, p.knorm)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    q = apply_rope(q, cos, sin)
+    if hmask is not None:
+        q = q * hmask[None, None, :, None]
+    q = ctx.constrain(q, "batch", "seq", "tensor", None)
+    return q, apply_rope(k, cos, sin), v
 
 
-def _attn_out(p: Block, o: torch.Tensor) -> torch.Tensor:
-    return p.wo(o.flatten(2))
+def _attn_out(p: Block, o: torch.Tensor, ctx: Ctx = NOCTX,
+              hmask=None) -> torch.Tensor:
+    if hmask is not None:
+        o = o * hmask[None, None, :, None]
+    return ctx.constrain(p.wo(o.flatten(2)), "batch", "seq", None)
 
 
 def _group(cfg) -> int:
     return max(cfg.n_heads // cfg.n_kv_heads, 1)
 
 
-def _block(cfg, cos, sin, use_full_attn: bool, want_cache: bool = False):
+def _block(cfg, cos, sin, use_full_attn: bool, want_cache: bool = False,
+           ctx: Ctx = NOCTX, hmask=None):
     """The layer function of :func:`common.scan_blocks`; with
     ``want_cache`` it also outputs the layer's keys and values."""
     g = _group(cfg)
@@ -135,86 +150,101 @@ def _block(cfg, cos, sin, use_full_attn: bool, want_cache: bool = False):
     def fn(carry, p: Block):
         h, extra = carry
         x = rms_norm(h, p.ln1)
-        q, k, v = _qkv(p, x, cfg, cos, sin)
+        q, k, v = _qkv(p, x, cfg, cos, sin, ctx, hmask)
         if use_full_attn:
             o = attn_full(q, k, v, group_size=g)
         else:
             o = attn_chunked(q, k, v, q_chunk=cfg.attn_chunk,
-                             kv_chunk=cfg.attn_chunk, group_size=g)
-        h = h + _attn_out(p, o)
+                             kv_chunk=cfg.attn_chunk, group_size=g, ctx=ctx)
+        h = h + _attn_out(p, o, ctx, hmask)
         x = rms_norm(h, p.ln2)
-        h = h + gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight)
-        return (h, extra), ((k, v) if want_cache else None)
+        mlp = gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight, ctx)
+        if not want_cache:
+            mlp = ctx.constrain(mlp, "batch", "seq", None)
+        h = ctx.constrain(h + mlp, "batch", "seq", None)
+        if not want_cache:
+            return (h, extra), None
+        return (h, extra), (ctx.constrain(k, "batch", "kv_seq", None, None),
+                            ctx.constrain(v, "batch", "kv_seq", None, None))
     return fn
 
 
 class Transformer(nn.Module):
     """Embedding, ``cfg.n_layers`` blocks, final norm and output head."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp: int = 1):
         super().__init__()
         self.cfg = cfg
         V, d = cfg.vocab_padded(), cfg.d_model
         self.tok = nn.Embedding(V, d)
         self.out = nn.Linear(d, V, bias=False)
         self.final_norm = nn.Parameter(torch.empty(d))
-        self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, tp)
+                                    for _ in range(cfg.n_layers))
 
-    def forward(self, batch: dict, return_hidden: bool = False,
-                return_cache: bool = False):
+    def forward(self, batch: dict, ctx: Ctx = NOCTX,
+                return_hidden: bool = False, return_cache: bool = False):
         cfg = self.cfg
-        h = common.embed_tokens(self, batch["tokens"])
-        h = common.maybe_prepend_embeds(h, batch)
+        h = common.embed_tokens(self, batch["tokens"], ctx)
+        h = common.maybe_prepend_embeds(h, batch, ctx)
         S = h.shape[1]
         pos = torch.arange(S, device=h.device)
         cos, sin = rope_tables(pos[None, :], cfg.head_dim, cfg.rope_theta)
-        blk = _block(cfg, cos, sin, S <= FULL_ATTN_MAX, return_cache)
+        cos, sin = replicated_like(cos, h), replicated_like(sin, h)
+        hmask = common.head_mask(cfg, ctx.axis_size("tensor"), h.dtype,
+                                 h.device, like=h)
+        blk = _block(cfg, cos, sin, S <= FULL_ATTN_MAX, return_cache, ctx,
+                     hmask)
         h, _, kv = common.scan_blocks(
             blk, h, self.layers,
             remat=(cfg.remat == "block") and not return_cache)
         if return_hidden:
             return h
-        logits = common.unembed(self, h)
+        logits = common.unembed(self, h, ctx)
         if not return_cache:
             return logits
         return logits, {"k": kv[0], "v": kv[1],
                         "pos": torch.full((), S - 1, dtype=torch.int32,
                                           device=h.device)}
 
-    def decode(self, cache: dict, tokens: torch.Tensor):
+    def decode(self, cache: dict, tokens: torch.Tensor, ctx: Ctx = NOCTX):
         cfg = self.cfg
         B = tokens.shape[0]
-        h = common.embed_tokens(self, tokens)
+        h = common.embed_tokens(self, tokens, ctx)
         pos = cache["pos"] + 1                   # position of the new token
         cos, sin = rope_tables(pos.expand(B, 1), cfg.head_dim,
                                cfg.rope_theta)
+        hmask = common.head_mask(cfg, ctx.axis_size("tensor"), h.dtype,
+                                 h.device, like=h)
         g = _group(cfg)
         ks, vs = [], []
         for i, p in enumerate(self.layers):
             x = rms_norm(h, p.ln1)
-            q, k, v = _qkv(p, x, cfg, cos, sin)
+            q, k, v = _qkv(p, x, cfg, cos, sin, ctx, hmask)
             # the OLD cache plus an explicit self-token term; the cache is
             # written once, after the layers
             o = attn_decode(q, cache["k"][i], cache["v"][i], pos, k_new=k,
-                            v_new=v, group_size=g)
-            h = h + _attn_out(p, o)
+                            v_new=v, ctx=ctx, group_size=g)
+            h = h + _attn_out(p, o, ctx, hmask)
             x = rms_norm(h, p.ln2)
-            h = h + gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight)
+            h = h + gated_mlp(x, p.wg.weight, p.wu.weight, p.wd.weight, ctx)
             ks.append(k)
             vs.append(v)
-        kc = update_cache(cache["k"], torch.stack(ks), pos, seq_axis=2)
-        vc = update_cache(cache["v"], torch.stack(vs), pos, seq_axis=2)
-        return common.unembed(self, h), {"k": kc, "v": vc, "pos": pos}
+        kc = update_cache(cache["k"], torch.stack(ks), pos, ctx, seq_axis=2)
+        vc = update_cache(cache["v"], torch.stack(vs), pos, ctx, seq_axis=2)
+        return common.unembed(self, h, ctx), {"k": kc, "v": vc, "pos": pos}
 
 
-def build(cfg, params, *, dtype=None, device=None) -> Transformer:
+def build(cfg, params, *, dtype=None, device=None,
+          tp: int = 1) -> Transformer:
     """A :class:`Transformer` holding ``params`` (a tree in the reference's
     layout, see :func:`param_defs`), on ``device`` (default: the card),
     cast to ``dtype`` if given.  Built for inference: no gradients."""
-    return common.build(Transformer, cfg, params, dtype=dtype, device=device)
+    return common.build(Transformer, cfg, params, dtype=dtype, device=device,
+                        tp=tp)
 
 
-def forward(params: Transformer, batch: dict, cfg,
+def forward(params: Transformer, batch: dict, cfg, ctx: Ctx = NOCTX,
             return_cache: bool = False, return_hidden: bool = False):
     """The reference's ``forward(params, batch, cfg)``: logits (B, S, V), or
     the hidden states (B, S, d) before the final norm, or with
@@ -223,8 +253,11 @@ def forward(params: Transformer, batch: dict, cfg,
 
     A network built by :func:`build` runs in inference mode; one whose
     parameters require gradients (the trainer's) is differentiated through
-    while autograd is enabled."""
-    return common.forward(params, batch, cfg, return_hidden=return_hidden,
+    while autograd is enabled.  Under ``ctx``'s mesh the network's
+    parameters are ``DTensor``s (``params.distribute``) and so are the
+    outputs."""
+    return common.forward(params, batch, cfg, ctx,
+                          return_hidden=return_hidden,
                           return_cache=return_cache)
 
 
@@ -243,8 +276,9 @@ def cache_defs(cfg, B: int, S: int) -> dict:
     }
 
 
-def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor, cfg):
+def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor, cfg,
+                ctx: Ctx = NOCTX):
     """One decode step: ``tokens`` (B, 1) at position ``cache["pos"] + 1``
     -> ``(logits (B, 1, V), cache)``; the cache's ``k``/``v`` are updated in
     place and returned with the new ``pos``."""
-    return common.decode_step(params, cache, tokens, cfg)
+    return common.decode_step(params, cache, tokens, cfg, ctx)

@@ -10,6 +10,11 @@ and no elementwise work, as the reference's dot count does.  On ``meta``
 tensors the program allocates nothing and the count needs no card
 (``launch/dryrun.py``); on ``cuda`` it is the count of what ran.
 
+A partitioned program (a step under a mesh ``Ctx``, ``DTensor``s) is
+counted on one rank by :func:`count_collectives`: the matrix-product flops
+of the rank's local products and the operand bytes of its collectives, by
+kind (the reference's ``hlo_costs`` layout).
+
 The two kernels' costs are models of the work their function needs,
 whatever implements it (:func:`wavefront_cost`, :func:`pairwise_l2_cost`,
 and :func:`kernel_cost_report` over a kernel's own arguments); a decode
@@ -20,7 +25,7 @@ type.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -195,3 +200,63 @@ def count_flops(fn, *args, **kwargs):
     with mode:
         out = fn(*args, **kwargs)
     return mode.get_total_flops(), out
+
+
+#: collective kinds, the reference's names (``hlo_costs._COLLECTIVES``)
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+#: ``c10d_functional`` ops (and their autograd twins) -> kind
+_COLLECTIVE_OPS = {
+    f"{ns}::{op}": kind
+    for ns in ("_c10d_functional", "_c10d_functional_autograd")
+    for op, kind in (("all_reduce", "all-reduce"),
+                     ("all_reduce_", "all-reduce"),
+                     ("all_gather_into_tensor", "all-gather"),
+                     ("reduce_scatter_tensor", "reduce-scatter"),
+                     ("all_to_all_single", "all-to-all"))}
+
+
+def count_collectives(fn, *args, trace: Optional[list] = None, **kwargs):
+    """``(flops, collectives, fn(*args, **kwargs))`` of one call on this
+    rank: the matrix-product flops of the local products it runs
+    (``FlopCounterMode``'s formulas, backward passes included) and
+    ``collectives``, the operand bytes of its ``c10d_functional``
+    collectives per kind with ``total_bytes`` and the number of calls per
+    kind under ``counts``.  ``DTensor`` ops are not counted themselves,
+    only the local ops and collectives they run, and so is nothing of
+    ``DTensor``'s shape propagation (fake tensors).  ``trace``, a list,
+    gets ``(kind, operand shape, dtype)`` of each collective in order."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    fake_key = torch._C._TorchDispatchModeKey.FAKE
+    coll = {k: 0 for k in COLLECTIVES}
+    calls = {k: 0 for k in COLLECTIVES}
+    total = [0]
+
+    class _Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **kwargs)
+            if torch._C._get_dispatch_mode(fake_key) is not None:
+                return out
+            name = func._overloadpacket._qualified_op_name
+            kind = _COLLECTIVE_OPS.get(name)
+            if kind is not None:
+                t = args[0]
+                coll[kind] += t.numel() * t.element_size()
+                calls[kind] += 1
+                if trace is not None:
+                    trace.append((kind, tuple(t.shape), t.dtype))
+            elif func._overloadpacket in flop_registry:
+                total[0] += flop_registry[func._overloadpacket](
+                    *args, **kwargs, out_val=out)
+            return out
+
+    with _Count():
+        out = fn(*args, **kwargs)
+    return total[0], {**coll, "total_bytes": sum(coll.values()),
+                      "counts": calls}, out

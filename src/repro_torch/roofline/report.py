@@ -2,11 +2,13 @@
 per-(arch x shape) roofline table on one mesh as markdown + JSON.
 
 Terms (H100 SXM data-sheet constants, ``roofline/costs.py``):
-  compute_s    = counted flops / (chips * peak at the cell's dtype)
+  compute_s    = flops per chip / peak at the cell's dtype (on a pod mesh
+                 the partitioned step's count on one rank, else the
+                 counted flops / chips)
   memory_s     = per-chip argument + output bytes / 3.35e12
-  collective_s = null: no sharded program runs on one card, and the
-                 reference reads its collective bytes from the compiled
-                 HLO (see ``COLLECTIVE_NOTE``)
+  collective_s = the partitioned step's collective operand bytes on one
+                 rank / :data:`LINK_BW`; 0 on one card, which runs no
+                 collective (``COLLECTIVE_NOTE``)
 
 ``MODEL_FLOPS / counted flops`` exposes remat and dispatch waste; dominant
 term = argmax; roofline step time = max of terms (perfect overlap); MFU =
@@ -29,8 +31,16 @@ from repro_torch.roofline import costs
 
 REPORT_DIR = pathlib.Path(__file__).resolve().parents[3] / "reports"
 
-COLLECTIVE_NOTE = ("not modelled: no sharded program runs on one card; the "
-                   "reference reads collective bytes from the compiled HLO")
+#: NVLink 4 on an H100 SXM: 900 GB/s bidirectional per card, 450e9 B/s each
+#: way (NVIDIA H100 data sheet).  Optimistic: it is the rate inside one
+#: NVLink domain (8 cards of a node); a pod of 256 or 512 cards crosses
+#: slower links, and no collective reaches the peak.  Not the reference's
+#: TPU figure.
+LINK_BW = 450e9
+COLLECTIVE_NOTE = ("0 on one card: the step runs no collective; on a pod "
+                   "mesh the partitioned step's collective bytes per chip "
+                   "over NVLink 4's 450e9 B/s a direction (H100 SXM data "
+                   "sheet; optimistic beyond one node)")
 
 
 def model_flops_for(cfg, shape) -> float:
@@ -50,13 +60,19 @@ def analyze(rec: dict, step_s: Optional[float] = None) -> Optional[Dict]:
         return None
     n_dev = rec["n_devices"]
     peak = costs.peak_flops(getattr(torch, rec["dtype"]))
-    flops_dev = rec["flops"] / n_dev
+    flops_dev = rec.get("flops_per_device", rec["flops"] / n_dev)
     mem = rec["memory"]
     hbm = mem["argument_bytes"] + mem["output_bytes"]
     mf = rec["model_flops"]
     compute_s = flops_dev / peak
     mem_s = hbm / costs.PEAK_BYTES
+    coll = rec.get("collectives")
+    coll_s = coll["total_bytes"] / LINK_BW if coll else 0.0
+    if n_dev > 1 and not coll:
+        coll_s = None       # an unpartitioned record of a pod mesh
     terms = {"compute": compute_s, "memory": mem_s}
+    if coll_s:
+        terms["collective"] = coll_s
     step = max(terms.values())
     row = {
         "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
@@ -66,7 +82,7 @@ def analyze(rec: dict, step_s: Optional[float] = None) -> Optional[Dict]:
         "useful_frac": mf / rec["flops"] if rec["flops"] else 0.0,
         "compute_s": compute_s,
         "memory_s": mem_s,
-        "collective_s": None,
+        "collective_s": coll_s,
         "collective_note": COLLECTIVE_NOTE,
         "dominant": max(terms, key=terms.get),
         "step_s": step,
@@ -113,7 +129,8 @@ def to_markdown(rows: List[Dict]) -> str:
             continue
         out.append(
             f"| {r['arch']} | {r['shape']} | {r['compute_s']:.3f} | "
-            f"{r['memory_s']:.3f} | n/a | "
+            f"{r['memory_s']:.3f} | "
+            f"{'n/a' if r['collective_s'] is None else format(r['collective_s'], '.3f')} | "
             f"{r['dominant']} | {r['step_s']:.3f} | {r['mfu']:.1%} | "
             f"{r['useful_frac']:.1%} | {r['hbm_gib']:.1f} | "
             f"{'yes' if r['fits'] else 'NO'} |\n")

@@ -178,7 +178,7 @@ def test_analyze_synthetic_record():
     assert row["step_s"] == row["compute_s"]
     assert row["mfu"] == pytest.approx(2.6 / 4.0)
     assert row["useful_frac"] == 2.6e15 / 4.0e15
-    assert row["collective_s"] is None and row["collective_note"]
+    assert row["collective_s"] == 0 and row["collective_note"]
     assert row["fits"] and row["hbm_gib"] == 1e10 / 2**30
     assert row["measured_mfu"] == 2.6e15 / (989e12 * 5.0)
     # a pod: per-chip flops, f32 peak, memory-bound, over 80 GiB
