@@ -69,7 +69,13 @@ version on the card.  Then it drives the port's two paths:
   on the card equal to the record's, the peak memory at least its
   argument bytes, with the roofline terms and MFU of
   ``roofline/report``.  Both kernels' bounds in the timing lines come
-  from ``repro_torch.roofline.costs``.
+  from ``repro_torch.roofline.costs``;
+* the four examples (phase 16): ``examples/*_torch.py`` through their
+  ``main`` with ``--device cuda``, each one's printed lines held to its
+  ``--device cpu`` run (computed by worker processes during phases
+  12-15) by :func:`printed_lines_differ`, the wavefront's launches to the
+  counted dispatches; the LM example also from the CPU run's
+  initialisation, its counts held to brute force and the numpy backend.
 
 Levenshtein token ids over all of int32 (``2**24`` and up, where f32
 rounds ids together) are held to the numpy backend through the counter
@@ -124,6 +130,43 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+#: a number as the examples print it (signs stay in the text around it)
+_NUMBER = re.compile(r"\d+(?:\.\d+)?")
+
+
+def _digits(number: str) -> int:
+    return len(number.partition(".")[2])
+
+
+def _lines_close(got: str, want: str, loose: str) -> bool:
+    texts = _NUMBER.split(want)
+    if _NUMBER.split(got) != texts:
+        return False
+    for before, a, b in zip(texts, _NUMBER.findall(got),
+                            _NUMBER.findall(want)):
+        if a == b:
+            continue
+        if not (loose and "." in b and re.search(f"(?:{loose})$", before)
+                and _digits(a) == _digits(b)):
+            return False
+        if round(abs(float(a) - float(b)) * 10 ** _digits(b)) > 1:
+            return False
+    return True
+
+
+def printed_lines_differ(got: str, want: str, loose: str = "") -> list:
+    """The line pairs where an example's printed output ``got`` differs from
+    its reference run's ``want`` (empty: they match).  Every character must
+    be equal, numbers included, except a number with a decimal point right
+    after text that the regex ``loose`` matches at its end (the distances
+    and losses): it may differ by one unit in its last printed digit."""
+    g_lines, w_lines = got.splitlines(), want.splitlines()
+    if len(g_lines) != len(w_lines):
+        return [(f"{len(g_lines)} lines", f"{len(w_lines)} lines")]
+    return [(g, w) for g, w in zip(g_lines, w_lines)
+            if g != w and not _lines_close(g, w, loose)]
 
 
 # -- phase 1/2: facts and build ---------------------------------------------
@@ -3149,6 +3192,242 @@ def phase_sharded(torch, wf, pl2, args, dev, pods) -> dict:
     return out
 
 
+# -- phase 16: the four examples on the card ----------------------------------
+
+#: steps of phase 16's LM example runs (as CI runs the reference's)
+LM_STEPS = 30
+#: phase 16's examples: (``examples/<name>_torch.py``, its arguments besides
+#: ``--device``, the regex of the printed numbers held to one unit in their
+#: last digit, ``printed_lines_differ``'s ``loose``)
+EXAMPLES = (("quickstart", (), ""),
+            ("trajectory_search", (), r"d="),
+            ("protein_search", (), ""),
+            ("lm_semantic_retrieval", ("--steps", str(LM_STEPS)),
+             r"loss |-> "))
+LM = "lm_semantic_retrieval"
+#: the LM example's printed lines, parsed
+LM_LINES = re.compile(
+    r"trained (?P<steps>\d+) steps; loss (?P<first>[\d.]+) -> "
+    r"(?P<last>[\d.]+)\n"
+    r"near-duplicate window retrieved: seq (?P<seq>\d+) @(?P<start>\d+) "
+    r"\(d=(?P<d>[\d.]+)\) for probe from seq (?P<probe_seq>\d+)\n"
+    r"(?P<count>\d+) windows within eps=0\.5; evals=(?P<evals>\d+) "
+    r"vs naive=(?P<naive>\d+)\n\Z")
+#: the card's losses against the CPU's, from one initialisation: the two
+#: do f32 in different orders, which AdamW amplifies over the steps
+LM_LOSS_ATOL = 5e-3
+
+
+def example_main(name: str):
+    """``main`` of ``examples/<name>_torch.py``, imported now."""
+    import runpy
+    return runpy.run_path(str(ROOT / "examples" / f"{name}_torch.py"),
+                          run_name="example")["main"]
+
+
+def example_run(main, argv) -> tuple:
+    """(``main(argv)``'s result, what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main(list(argv))
+    return res, buf.getvalue()
+
+
+class LMFromInit:
+    """The port's ``Trainer`` patched, while entered, to copy the checkpoint
+    directory ``init`` into the one it is given (the LM example's fresh
+    temporary directory), so that it resumes from that step-0
+    initialisation: the CPU's generator and the card's draw different
+    weights from one seed, so the card's run and the CPU's start from the
+    one the CPU drew."""
+
+    def __init__(self, init: str):
+        self.init = init
+
+    def __enter__(self):
+        import shutil
+        from repro_torch.train import trainer
+        base = self.base = trainer.Trainer
+        init = self.init
+
+        class FromInit(base):
+            def __init__(self, model, cfg, opt_cfg, batcher, ckpt_dir, tcfg,
+                         *args, **kw):
+                shutil.copytree(init, ckpt_dir, dirs_exist_ok=True)
+                super().__init__(model, cfg, opt_cfg, batcher, ckpt_dir,
+                                 tcfg, *args, **kw)
+
+        trainer.Trainer = FromInit
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import trainer
+        trainer.Trainer = self.base
+
+
+def lm_init_checkpoint(directory: str) -> None:
+    """The LM example's model and optimizer at step 0, drawn on the CPU,
+    saved as a checkpoint in ``directory``."""
+    from repro_torch.data.pipeline import TokenBatcher
+    from repro_torch.data.synthetic import token_corpus
+    from repro_torch.models import registry as models
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg, mod = models.get("smollm-360m", reduced=True)
+    t = Trainer(mod, cfg, opt_lib.OptConfig(lr=1e-3, warmup_steps=10,
+                                            total_steps=LM_STEPS),
+                TokenBatcher(token_corpus(256, 256, cfg.vocab, seed=0),
+                             batch=8, seq=64, seed=1),
+                directory, TrainerConfig(total_steps=LM_STEPS), device="cpu")
+    params, opt_state, _ = t.init_or_resume()
+    t.ckpt.save(0, t._to_tree(params, opt_state), block=True)
+
+
+def example_cpu(name: str, argv, lm_init: str) -> tuple:
+    """What ``examples/<name>_torch.py`` prints with ``--device cpu`` (the
+    LM example from ``lm_init``), and its seconds; run in a worker process,
+    on one torch thread beside the card's phases."""
+    import contextlib
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with LMFromInit(lm_init) if name == LM else contextlib.nullcontext():
+            main = example_main(name)
+            t0 = time.perf_counter()
+            _, text = example_run(main, [*argv, "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    return text, time.perf_counter() - t0
+
+
+def example_cpu_runs(pool, lm_init: str) -> dict:
+    """Futures of :func:`example_cpu` for each of :data:`EXAMPLES`, computed
+    in ``pool`` while the card runs phases 12-15 (the LM example's step-0
+    checkpoint is written to ``lm_init`` first)."""
+    lm_init_checkpoint(lm_init)
+    return {name: pool.submit(example_cpu, name, argv, lm_init)
+            for name, argv, _ in EXAMPLES}
+
+
+def lm_lines(text: str, label: str) -> dict:
+    """The LM example's printed lines, parsed (:data:`LM_LINES`)."""
+    m = LM_LINES.fullmatch(text)
+    if m is None:
+        raise AssertionError(f"{label} printed {text!r}")
+    return {k: float(v) if "." in v else int(v)
+            for k, v in m.groupdict().items()}
+
+
+def lm_checks(res, text: str, label: str) -> dict:
+    """The LM example's printed lines, parsed, held to its own result: the
+    near-duplicate probe retrieves its own window (``d < 1e-3``), the
+    ``range(0.5)`` count equals a brute-force count over the run's own
+    vectors, and the hits and evaluations equal the numpy backend's over
+    those vectors."""
+    import numpy as np
+    from repro_torch.retrieval import RetrievalConfig, Retriever
+    got = lm_lines(text, label)
+    vecs, meta, probe = res["vecs"], res["meta"], res["probe"]
+    if (got["steps"], got["naive"]) != (LM_STEPS, len(vecs)) \
+            or got["seq"] != meta[probe].seq_id or got["start"] != \
+            meta[probe].start or got["d"] >= 1e-3:
+        raise AssertionError(f"{label}: {got}")
+    dist = np.sqrt(((vecs.astype(np.float64)
+                     - vecs[probe].astype(np.float64)) ** 2).sum(axis=1))
+    brute = int((dist <= 0.5).sum())
+    host = Retriever.build(RetrievalConfig(
+        "euclidean", index="embedding", eps_prime=0.02, num_max=5,
+        tight_bounds=True, backend="numpy", device="cpu"), vecs)
+    near = host.query(vecs[probe]).nearest(2.0, tol=1e-3)
+    within = host.query(vecs[probe]).range(0.5)
+    if got["count"] != brute or sorted(res["range"].hits) != \
+            sorted(within.hits) or res["nearest"].first != near.first \
+            or got["evals"] != host.eval_stats()["query"]:
+        raise AssertionError(
+            f"{label}: count {got['count']} (brute force {brute}), "
+            f"evals {got['evals']} (numpy backend "
+            f"{host.eval_stats()['query']})")
+    return got
+
+
+def phase_examples(torch, wf, pl2, dispatch, dev, cpu_runs, lm_init
+                   ) -> dict:
+    """Phase 16: the four ``examples/*_torch.py`` through their ``main`` with
+    ``--device cuda``, in process, each under :func:`drive` (launch counts
+    zeroed, the padded layout never built).  Each one's printed lines are
+    held to its ``--device cpu`` run (``cpu_runs``) by
+    :func:`printed_lines_differ`; the retrieval examples launch the
+    wavefront once per dispatch counted in ``dispatch.STATS`` and never
+    ``pairwise_l2``.  The LM example runs twice: as a user runs it (its own
+    initialisation on the card) and from the CPU run's initialisation
+    (``lm_init``), whose losses are held to the CPU's within
+    :data:`LM_LOSS_ATOL`, its near-duplicate line's sequence and offset
+    exactly; each run's count and evaluations to :func:`lm_checks`; it
+    launches neither kernel (its Euclidean distance is the elementwise
+    spec's torch ops)."""
+    import contextlib
+    t_phase = time.perf_counter()
+    dev_argv = ["--device", str(dev)]
+    runs = [(name, argv, loose, False) for name, argv, loose in EXAMPLES]
+    runs.append((LM, EXAMPLES[-1][1], EXAMPLES[-1][2], True))
+    launches = {"wavefront": 0, "pairwise_l2": 0}
+    for name, argv, loose, from_init in runs:
+        label = f"examples16-{name}" + ("-cpu-init" if from_init else "")
+        with LMFromInit(lm_init) if from_init else contextlib.nullcontext():
+            main = example_main(name)
+            pl2.LAUNCHES = 0
+            (res, text), s, n_wf, ks, rows = drive(
+                torch, wf, dispatch, label,
+                lambda: example_run(main, [*argv, *dev_argv]))
+        dispatches, n_l2 = dispatch.STATS.dispatches, pl2.LAUNCHES
+        for line in text.splitlines():
+            print(f"[{label}] | {line}", flush=True)
+        extra = {}
+        if name == LM:
+            got = lm_checks(res, text, label)
+            if n_wf or n_l2:
+                raise AssertionError(f"{label}: launches {n_wf} wavefront, "
+                                     f"{n_l2} pairwise_l2; expected none")
+            extra = dict(loss_first=got["first"], loss_last=got["last"],
+                         range_hits=got["count"], evals=got["evals"])
+        elif n_wf != dispatches or n_l2:
+            raise AssertionError(f"{label}: {n_wf} wavefront launches for "
+                                 f"{dispatches} dispatches, {n_l2} "
+                                 "pairwise_l2 launches")
+        want, cpu_s = cpu_runs[name].result()
+        if name != LM:
+            bad = printed_lines_differ(text, want, loose)
+        elif from_init:
+            cpu = lm_lines(want, f"{label} on the CPU")
+            bad = [(k, got[k], cpu[k]) for k in ("steps", "seq", "start",
+                                                 "probe_seq", "naive")
+                   if got[k] != cpu[k]]
+            bad += [(k, got[k], cpu[k]) for k in ("first", "last")
+                    if abs(got[k] - cpu[k]) > LM_LOSS_ATOL]
+            extra.update(cpu_lines_equal=text == want,
+                         cpu_count=cpu["count"], cpu_evals=cpu["evals"])
+        else:
+            bad = []
+        if bad:
+            raise AssertionError(f"{label}: the card's lines differ from the "
+                                 f"CPU's: {bad}")
+        launches["wavefront"] += n_wf
+        launches["pairwise_l2"] += n_l2
+        log(label, lines=len(text.splitlines()), s=f"{s:.2f}",
+            host_s=f"{s - ks:.2f}", kernel_s=f"{ks:.4f}", launches=n_wf,
+            launches_pairwise_l2=n_l2, dispatches=dispatches,
+            rows_max=max(rows, default=0), cpu_s=f"{cpu_s:.2f}",
+            held_to="the --device cpu run" if name != LM or from_init
+            else "its own vectors", **extra)
+    log("examples16-done", s=f"{time.perf_counter() - t_phase:.2f}",
+        launches_wavefront=launches["wavefront"],
+        launches_pairwise_l2=launches["pairwise_l2"])
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 20,000 windows build in 120-210 s on the H100 host; step 4 at lam=40
@@ -3242,17 +3521,23 @@ def main(argv=None) -> int:
     train = phase_train(torch, wf, dispatch, args, dev)
     log("index-train-phases", s=f"{time.perf_counter() - t_new:.2f}")
     # phase 14's dry-run records are counted on meta by a worker process
-    # while the card runs phases 12 and 13
+    # while the card runs phases 12 and 13; then the examples' CPU runs
+    # that phase 16 holds the card's to
     import concurrent.futures
     import multiprocessing
-    with concurrent.futures.ProcessPoolExecutor(
-            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+    import tempfile
+    with tempfile.TemporaryDirectory() as lm_init, \
+            concurrent.futures.ProcessPoolExecutor(
+                2, mp_context=multiprocessing.get_context("spawn")) as pool:
         records = tooling_records(pool)
         pods = pod_records(pool)
+        cpu_runs = example_cpu_runs(pool, lm_init)
         decode = phase_decode(torch, wf, pl2, args, dev)
         ssm = phase_ssm(torch, wf, pl2, args, dev)
         tooling = phase_tooling(torch, wf, pl2, dev, records)
         sharded = phase_sharded(torch, wf, pl2, args, dev, pods)
+        examples = phase_examples(torch, wf, pl2, dispatch, dev, cpu_runs,
+                                  lm_init)
     timing = phase_timing(torch, wf, rng, dev, full["sizes"])
     l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
@@ -3263,7 +3548,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/wavefront.py:229",
         "launches": full["launches"] + fleet8["row"]["launches"]
         + serve["launches"] + index_launches + train["launches"]
-        + lev_launches,
+        + lev_launches + examples["launches"]["wavefront"],
         "launches_by_path": {"matching": full["launches"],
                              "fleet": fleet8["row"]["launches"],
                              "serve": serve["launches"],
@@ -3273,7 +3558,8 @@ def main(argv=None) -> int:
                              "decode": decode["launches"]["wavefront"],
                              "ssm": ssm["launches"]["wavefront"],
                              "tooling": tooling["launches"]["wavefront"],
-                             "sharded": sharded["launches"]["wavefront"]},
+                             "sharded": sharded["launches"]["wavefront"],
+                             "examples": examples["launches"]["wavefront"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3282,13 +3568,15 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
         "replaces": "src/repro/kernels/pairwise_l2.py:47",
         "launches": emb["launches"] + ssm["embedding"]["launches"]
-        + sharded["launches"]["pairwise_l2"],
+        + sharded["launches"]["pairwise_l2"]
+        + examples["launches"]["pairwise_l2"],
         "launches_by_path": {"embedding": emb["launches"],
                              "decode": decode["launches"]["pairwise_l2"],
                              "ssm": ssm["launches"]["pairwise_l2"],
                              "ssm_embedding": ssm["embedding"]["launches"],
                              "tooling": tooling["launches"]["pairwise_l2"],
-                             "sharded": sharded["launches"]["pairwise_l2"]},
+                             "sharded": sharded["launches"]["pairwise_l2"],
+                             "examples": examples["launches"]["pairwise_l2"]},
         **l2_err,
         "max_abs_err_ssm_embedding": ssm["embedding"]["max_abs_err"],
         **l2_rows[0]}]

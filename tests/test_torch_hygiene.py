@@ -13,6 +13,8 @@ torch = pytest.importorskip("torch")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
+#: the port's examples, one beside each of ``repro``'s
+EXAMPLES = sorted((REPO / "examples").glob("*_torch.py"))
 
 
 def _modules():
@@ -55,7 +57,7 @@ def _imports(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [REPO / "chip_smoke.py"],
+                         + [REPO / "chip_smoke.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax_and_no_reference_package(path):
     for mod in _imports(path):
@@ -94,3 +96,21 @@ def test_cuda_requests_raise_rather_than_fall_back(no_cuda):
     with pytest.raises(RuntimeError, match="cuda"):
         get("dtw").batch(np.zeros((2, 4, 1), np.float32),
                          np.zeros((2, 4, 1), np.float32))
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_example_default_device_raises_without_cuda(no_cuda, path,
+                                                    monkeypatch, capsys):
+    """Each example runs on the card by default: without one, ``main([])``
+    raises naming ``cuda`` before it prints a result line or trains."""
+    import runpy
+    from repro_torch.train import trainer
+
+    def no_training(*args, **kw):
+        raise AssertionError("trained without a device")
+
+    monkeypatch.setattr(trainer.Trainer, "run", no_training)
+    main = runpy.run_path(str(path), run_name="example")["main"]
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([])
+    assert capsys.readouterr().out == ""
