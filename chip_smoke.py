@@ -77,6 +77,11 @@ version on the card.  Then it drives the port's two paths:
   counted dispatches; the LM example also from the CPU run's
   initialisation, its counts held to brute force and the numpy backend.
 
+Every float distance the card computes (the wavefront kernel's DTW, ERP
+and Frechet, the elementwise Euclidean, the envelope bounds) is held bit
+for bit to the numpy host lane at feature widths 1 to 300 (phase 3d), so a
+range query whose ε sits one ulp under a distance answers as numpy does.
+
 Levenshtein token ids over all of int32 (``2**24`` and up, where f32
 rounds ids together) are held to the numpy backend through the counter
 on the card, and the kernel to its plain version on ids whose bit
@@ -189,13 +194,17 @@ KERNEL_SOURCES = ("wavefront", "pairwise_l2")
 
 def kernel_name(ptxas_line: str) -> str:
     """A short name for a kernel that ptxas names in mangled form:
-    ``row<lev,24>``, ``block<erp>``, ``pairwise_l2<wg=2,n=128,tma>``."""
-    m = re.search(r"wavefront_row_kernelILi(\d)ELi(\d+)E", ptxas_line)
+    ``row<lev,24>``, ``row<erp,32,d>=8>``, ``block<erp>``,
+    ``pairwise_l2<wg=2,n=128,tma>``."""
+    m = re.search(r"wavefront_row_kernelILi(\d)ELi(\d+)ELb(\d)E",
+                  ptxas_line)
     if m:
-        return f"row<{MODES[int(m.group(1))]},{m.group(2)}>"
-    m = re.search(r"wavefront_block_kernelILi(\d)E", ptxas_line)
+        wide = ",d>=8" if m.group(3) == "1" else ""
+        return f"row<{MODES[int(m.group(1))]},{m.group(2)}{wide}>"
+    m = re.search(r"wavefront_block_kernelILi(\d)ELb(\d)E", ptxas_line)
     if m:
-        return f"block<{MODES[int(m.group(1))]}>"
+        wide = ",d>=8" if m.group(2) == "1" else ""
+        return f"block<{MODES[int(m.group(1))]}{wide}>"
     m = re.search(r"pairwise_l2_kernelILi(\d)ELi(\d+)ELb(\d)E", ptxas_line)
     if m:
         return (f"pairwise_l2<wg={m.group(1)},n={m.group(2)},"
@@ -354,6 +363,135 @@ def phase_kernel_parity(torch, wf, rng, dev) -> float:
         tol=f"lev bit-equal; float rtol=atol={RTOL}; hit/pruned equal",
         s=f"{time.perf_counter() - t0:.2f}")
     return worst
+
+
+# -- phase 3d: float distances bit-equal to the numpy lane -------------------
+
+#: feature widths of the numpy-order check: left to right below 8, eight
+#: running sums up to 128, numpy's halving above
+NUMPY_DS = (1, 2, 3, 7, 8, 9, 16, 60, 130, 300)
+
+#: the Frechet range query of ``tests/test_torch_numpy_order.py``: numpy's
+#: distance of query 1 to window 23 is one ulp above this ε
+FRECHET_EPS, FRECHET_WINDOW = 6.4009246826171875, 23
+
+
+def phase_numpy_parity(torch, wf, dev) -> float:
+    """Phase 3d: the float distances the port computes on the card, held
+    bit for bit to the reference's numpy lane (the port's copies
+    ``distances/np_backend.py`` and ``distances/bounds.py``): the CUDA
+    wavefront kernel for DTW, ERP and Frechet at every width of
+    ``NUMPY_DS`` in both schedules (rows of up to 13 x 9 and of 33-40 x
+    30-36), with ε at each row's distance a hit and one ulp under it a
+    miss; the ``kernel`` backend's elementwise Euclidean; the ``lb:``
+    envelope specs; the one-shot query's bound; ``sqrt_rn`` on 2**20
+    values (the card's own f32 ``torch.sqrt`` only counted).  Then the
+    Frechet range query at ``FRECHET_EPS`` on the card, where window 23
+    must miss for query 1 as it does in numpy.  Returns the largest
+    ``|card - numpy|``, which must be 0.0 (it raises otherwise)."""
+    import numpy as np
+    from repro_torch.core.distributed import _envelope_rows
+    from repro_torch.data.synthetic import trajectories
+    from repro_torch.distances import bounds, np_backend
+    from repro_torch.distances._wavefront import sqrt_rn
+    from repro_torch.kernels import registry
+    from repro_torch.retrieval import RetrievalConfig, Retriever
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    worst = {}
+
+    def check(what, got, want):
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        worst[what] = max(worst.get(what, 0.0), err)
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"numpy parity: {what} differs in "
+                f"{int((got != want).sum())} of {got.size} values (max "
+                f"{err})")
+
+    def card(a):
+        return torch.as_tensor(a, device=dev)
+
+    cases = 0
+    for mode in ("dtw", "erp", "dfd"):
+        for d in NUMPY_DS:
+            for B, lxr, lyr in ((96, (1, 13), (1, 9)),
+                                (6, (33, 40), (30, 36))):
+                xs, ys, lx, ly = make_rows(rng, mode, B, lxr, lyr, d,
+                                           zero_pad=False)
+                ops = operands(mode, xs, ys, lx, ly, dev)
+                want = np_backend.batch_alignment(xs, ys, mode, lx, ly)
+                inf = torch.full((B,), float("inf"), device=dev)
+                check(f"wavefront {mode}", wf.wavefront_cuda(
+                    *ops, inf, mode=mode)[0], want)
+                at = wf.wavefront_cuda(*ops, card(want), mode=mode)
+                under = wf.wavefront_cuda(
+                    *ops, card(np.nextafter(want, -np.inf)), mode=mode)
+                if not bool(at[1].all()) or bool(under[1].any()):
+                    raise AssertionError(
+                        f"numpy parity: {mode} d={d}: a row at its own "
+                        "distance misses, or one an ulp under it hits")
+                cases += 1
+    for d in (1, 8, 60):
+        for L in (9, 300):
+            xs = rng.normal(size=(64, L, d)).astype(np.float32)
+            ys = rng.normal(size=(64, L, d)).astype(np.float32)
+            lx = rng.integers(1, L + 1, 64)
+            lx[0] = L
+            check("euclidean", registry.get("euclidean").batch(
+                xs, ys, lx, lx, device=dev).dist,
+                np_backend.batch_euclidean(xs, ys, lx))
+            cases += 1
+    for name, bound in (("dtw", bounds.lb_dtw_envelope),
+                        ("erp", bounds.lb_erp_envelope),
+                        ("frechet", bounds.lb_frechet_envelope)):
+        for d in NUMPY_DS:
+            xs, ys, lx, ly = make_rows(rng, "erp", 64, (1, 13), (1, 9), d,
+                                       zero_pad=False)
+            check(f"lb:{name}", registry.get_envelope(name).batch(
+                xs, ys, lx, ly, device=dev).dist,
+                bound(xs, ys, lx, ly))
+            env = bounds.build_envelopes(ys, ly)
+            check("one-shot bound", _envelope_rows(
+                name, card(xs), card(lx), card(env.lo), card(env.hi),
+                card(env.mass)), bounds.lb_envelope_rows(
+                    name, xs, lx, env.lo, env.hi, env.mass))
+            cases += 2
+    # the range query whose ε sits one ulp under a distance
+    data = trajectories(160, seed=0)
+    qrng = np.random.default_rng(2)
+    qs = data[qrng.integers(0, len(data), 4)].copy()
+    qs = qs + qrng.normal(scale=0.1 * np.std(data),
+                          size=qs.shape).astype(qs.dtype)
+    d23 = np_backend.batch_alignment(
+        qs[1:2], data[FRECHET_WINDOW:FRECHET_WINDOW + 1], "dfd")[0]
+    if not d23 == np.nextafter(np.float32(FRECHET_EPS), np.inf):
+        raise AssertionError(f"numpy parity: the Frechet case moved "
+                             f"(numpy's distance {d23!r})")
+    got = Retriever.build(RetrievalConfig(
+        "frechet", index="linear", device=str(dev)), data).batch(
+        qs).range(FRECHET_EPS)
+    want = Retriever.build(RetrievalConfig(
+        "frechet", index="linear", backend="numpy", device=str(dev)),
+        data).batch(qs).range(FRECHET_EPS)
+    if FRECHET_WINDOW in got.hits[1] or got.hits != want.hits \
+            or got.stats != want.stats:
+        raise AssertionError("numpy parity: the Frechet range query at an "
+                             "ulp under a distance differs from numpy")
+    # the correctly rounded root, and what the card's own f32 root does
+    v = (rng.random(1 << 20) * rng.choice(
+        [1e-6, 1e-3, 1.0, 1e3, 1e6, 1e30], 1 << 20)).astype(np.float32)
+    check("sqrt_rn", sqrt_rn(card(v)), np.sqrt(v))
+    own = int((torch.sqrt(card(v)).cpu().numpy() != np.sqrt(v)).sum())
+    err = max(worst.values())
+    log("numpy-parity", cases=cases, widths=repr(NUMPY_DS),
+        max_abs_err=err, **{k.replace(" ", "_").replace(":", "_"): v
+                            for k, v in worst.items()},
+        frechet_window23="miss", frechet_hits=sum(map(len, got.hits)),
+        torch_sqrt_f32_mismatches=f"{own} of {v.size}",
+        tol="bit-equal", s=f"{time.perf_counter() - t0:.2f}")
+    return err
 
 
 # -- phase 4: main-path parity against the numpy host backend -----------------
@@ -680,7 +818,11 @@ def phase_timing(torch, wf, rng, dev, sizes) -> list:
               ("lev", seg_rows, (18, 22), (20, 20), 1,
                "main path largest dispatch (lam=40 step 4)"),
               ("lev", 1 << 20, (18, 22), (20, 20), 1, "1,048,576 rows"),
-              ("erp", 1 << 18, (20, 20), (20, 20), 2, "262,144 rows")]
+              ("erp", 1 << 18, (20, 20), (20, 20), 2, "262,144 rows"),
+              ("erp", 1 << 16, (20, 20), (20, 20), 8,
+               "65,536 rows, d = 8 (numpy's eight running sums)"),
+              ("erp", 1 << 14, (20, 20), (20, 20), 60,
+               "16,384 rows, d = 60")]
     rows_out = []
     for mode, B, lxr, lyr, d, what in shapes:
         xs, ys, lx, ly = make_rows(rng, mode, B, lxr, lyr, d)
@@ -1203,6 +1345,10 @@ def phase_fleet_parity(torch, wf, dispatch, dev) -> int:
     errs = {}
     for a, b, what in ((devb, host, "one-shot stage"),
                        (two, host2, "lb:erp spec")):
+        if not np.array_equal(a, b):  # numpy's orders on the card too
+            raise AssertionError(f"device envelope ({what}) not bit-equal "
+                                 f"to the host's on {int((a != b).sum())} "
+                                 "rows")
         d = np.abs(a.astype(np.float64) - b)
         errs[what] = (float((d / np.maximum(np.abs(b), 1e-6)).max()),
                       float((d / np.maximum(scale, np.abs(b))).max()))
@@ -1214,7 +1360,7 @@ def phase_fleet_parity(torch, wf, dispatch, dev) -> int:
         scaled_err_oneshot_stage=f"{errs['one-shot stage'][1]:.3g}",
         rel_err_lb_spec=f"{errs['lb:erp spec'][0]:.3g}",
         scaled_err_lb_spec=f"{errs['lb:erp spec'][1]:.3g}",
-        tol=repr("|d| <= 1e-5 (sum|q_i| + mass)"),
+        tol=repr("bit-equal; |d| <= 1e-5 (sum|q_i| + mass)"),
         lb_rows=ds["lb_rows"], lb_pruned=ds["lb_pruned"],
         s=f"{time.perf_counter() - t0:.2f}")
     return launches_total
@@ -3505,6 +3651,7 @@ def main(argv=None) -> int:
     facts = phase_facts(torch, build)
     phase_build(build)
     max_err = phase_kernel_parity(torch, wf, rng, dev)
+    numpy_err = phase_numpy_parity(torch, wf, dev)
     l2_err = phase_l2_parity(torch, pl2, dev)
     phase_main_parity(torch, wf, rng, dev)
     lev_launches = phase_lev_ids(torch, wf, dev)
@@ -3560,7 +3707,7 @@ def main(argv=None) -> int:
                              "tooling": tooling["launches"]["wavefront"],
                              "sharded": sharded["launches"]["wavefront"],
                              "examples": examples["launches"]["wavefront"]},
-        "max_abs_err": max_err,
+        "max_abs_err": max_err, "max_abs_err_numpy": numpy_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "old_bound_ms": main_row["old_bound_ms"], "library_ms": None}, {

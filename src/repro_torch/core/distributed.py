@@ -54,6 +54,7 @@ from repro_torch.core import _deprecation
 from repro_torch.core.refnet import ReferenceNet
 from repro_torch.distances import bounds
 from repro_torch.distances import np_backend
+from repro_torch.distances._wavefront import sqrt_rn, sum_last
 from repro_torch.kernels import registry as kernel_registry
 from repro_torch.kernels.wavefront import lev_operand
 
@@ -409,7 +410,9 @@ def _device_query(qs, q_lens, arrs, eps: float, dist_name: str,
 
 def _envelope_rows(dist_name: str, xq, q_lens, env_lo, env_hi, env_mass):
     """One-direction envelope bound of query rows ``xq`` against the
-    candidates' precomputed boxes (``(C, d)``) and gap masses (``(C,)``)."""
+    candidates' precomputed boxes (``(C, d)``) and gap masses (``(C,)``):
+    ``bounds.lb_envelope_rows`` bit for bit (numpy's sum orders and
+    root)."""
     if xq.ndim == 2:
         xq = xq[..., None]
     xq = xq.to(torch.float32)
@@ -418,16 +421,16 @@ def _envelope_rows(dist_name: str, xq, q_lens, env_lo, env_hi, env_mass):
     lo_r = env_lo[:, None, :]                               # (C, 1, d)
     hi_r = env_hi[:, None, :]
     gap = torch.clamp_min(lo_r - xq, 0.0) + torch.clamp_min(xq - hi_r, 0.0)
-    bd = torch.sqrt(torch.clamp_min((gap * gap).sum(dim=-1), 0.0))  # (C, L)
+    bd = sqrt_rn(torch.clamp_min(sum_last(gap * gap), 0.0))  # (C, L)
     if dist_name == "frechet":
         return torch.where(mx, bd, 0.0).amax(dim=1)
     if dist_name == "dtw":
-        return torch.where(mx, bd, 0.0).sum(dim=1)
+        return sum_last(bd * mx)
     # erp: element consumption + global gap-mass bound
-    gx = torch.where(mx, torch.sqrt(
-        torch.clamp_min((xq * xq).sum(dim=-1), 0.0)), 0.0)
-    cons = torch.where(mx, torch.minimum(gx, bd), 0.0).sum(dim=1)
-    gm = (gx.sum(dim=1) - env_mass).abs()
+    gx = torch.where(mx, sqrt_rn(
+        torch.clamp_min(sum_last(xq * xq), 0.0)), 0.0)
+    cons = sum_last(torch.minimum(gx, bd) * mx)
+    gm = (sum_last(gx) - env_mass).abs()
     return torch.maximum(cons, gm)
 
 

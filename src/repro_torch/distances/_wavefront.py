@@ -22,6 +22,7 @@ the answer off diagonal len_x + len_y at position len_x.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -31,16 +32,114 @@ from repro_torch import device as device_mod
 BIG = 3.4e37  # quasi-infinity that survives adds without overflowing f32
 
 
-def sum_last(t: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis left to right, one add at a time.
+# ---------------------------------------------------------------------------
+# numpy's orders of float32 sums and its correctly rounded square root
+# ---------------------------------------------------------------------------
+#
+# The reference's host lane (``distances/np_backend.py``, ``bounds.py``)
+# sums float32 last axes with numpy's ``pairwise_sum`` and takes
+# ``np.sqrt``, which is correctly rounded.  Every float distance of the
+# port uses the helpers below on every device, so it equals that lane bit
+# for bit and a range query at an ε set at a distance goes the same way.
 
-    A fixed order keeps the float modes bit-stable across devices (a CUDA
-    reduction may associate differently) and matches numpy's and XLA's
-    order on the short feature axes the distances use."""
-    acc = t[..., 0]
-    for j in range(1, t.shape[-1]):
-        acc = acc + t[..., j]
+#: leaves of numpy's pairwise sum hold at most this many terms
+_PW_BLOCK = 128
+
+
+@functools.lru_cache(maxsize=None)
+def _pw_plan(n: int):
+    """numpy's ``pairwise_sum`` order over ``n > 128`` terms: the sum of
+    the first ``m = n // 2 - (n // 2) % 8`` terms plus the sum of the
+    rest, each split again until its leaf holds at most 128 terms.
+    Returns ``(runs, tree)``: ``runs`` the leaves left to right as maximal
+    runs ``(start, count, k)`` of ``k`` adjacent leaves of ``count``
+    terms each, ``tree`` the splits as nested pairs of leaf indices."""
+    leaves = []
+
+    def plan(start: int, count: int):
+        if count <= _PW_BLOCK:
+            leaves.append((start, count))
+            return len(leaves) - 1
+        m = count // 2
+        m -= m % 8
+        return (plan(start, m), plan(start + m, count - m))
+
+    tree = plan(0, n)
+    runs = []
+    for start, count in leaves:
+        if runs and runs[-1][1] == count \
+                and runs[-1][0] + count * runs[-1][2] == start:
+            runs[-1] = (runs[-1][0], count, runs[-1][2] + 1)
+        else:
+            runs.append((start, count, 1))
+    return tuple(runs), tree
+
+
+def _pw_leaf(t: torch.Tensor) -> torch.Tensor:
+    """numpy's sum of the ``n <= 128`` terms of the last axis: left to
+    right below 8; else eight running sums over the blocks of 8 (term
+    ``j`` of every block into sum ``j``), joined as ``((r0 + r1) + (r2 +
+    r3)) + ((r4 + r5) + (r6 + r7))``, then the ``n % 8`` tail left to
+    right."""
+    n = t.shape[-1]
+    if n < 8:
+        acc = t[..., 0]
+        for i in range(1, n):
+            acc = acc + t[..., i]
+        return acc
+    body = n - n % 8
+    r = t[..., 0:8]
+    for i in range(8, body, 8):
+        r = r + t[..., i:i + 8]
+    r = r[..., 0::2] + r[..., 1::2]        # r0+r1, r2+r3, r4+r5, r6+r7
+    r = r[..., 0::2] + r[..., 1::2]
+    acc = r[..., 0] + r[..., 1]
+    for i in range(body, n):
+        acc = acc + t[..., i]
     return acc
+
+
+def sum_last(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in numpy's ``pairwise_sum`` order (what
+    ``np.sum(a, axis=-1)`` does on a float32 array), every add a separate
+    float32 rounding, vectorised over the leading axes and over adjacent
+    leaves of one size; the order is planned once per length.  The same
+    plain torch ops on every device (a library reduction may associate
+    differently)."""
+    n = t.shape[-1]
+    if n <= _PW_BLOCK:
+        return _pw_leaf(t)
+    runs, tree = _pw_plan(n)
+    leaves = []
+    for start, count, k in runs:
+        sums = _pw_leaf(t[..., start:start + count * k].unflatten(
+            -1, (k, count)))
+        leaves.extend(sums[..., i] for i in range(k))
+
+    def join(node):
+        if isinstance(node, int):
+            return leaves[node]
+        return join(node[0]) + join(node[1])
+
+    return join(tree)
+
+
+def cumsum_seq(t: torch.Tensor) -> torch.Tensor:
+    """Prefix sums along axis 1, left to right one add at a time: what
+    ``np.cumsum(a, axis=1)`` does (``torch.cumsum`` may associate
+    differently, on the CPU as on the card)."""
+    cols = [t[:, 0]]
+    for j in range(1, t.shape[1]):
+        cols.append(cols[-1] + t[:, j])
+    return torch.stack(cols, dim=1)
+
+
+def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as ``np.sqrt`` gives it: the
+    root is taken in float64 (53 bits, more than 2 * 24 + 2, so the one
+    rounding to float32 is exact) whatever the device's own float32
+    ``sqrt`` does."""
+    return torch.sqrt(t.double()).float()
 
 
 def _diag_gather(flat: torch.Tensor, k: int, ii: torch.Tensor, Lx: int,
@@ -144,7 +243,7 @@ def wavefront_dp(
 def l2_cost(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     """(B,Lx,d),(B,Ly,d) -> (B,Lx,Ly) pairwise Euclidean element cost."""
     diff = xs[:, :, None, :] - ys[:, None, :, :]
-    return torch.sqrt(torch.clamp_min(sum_last(diff * diff), 0.0))
+    return sqrt_rn(torch.clamp_min(sum_last(diff * diff), 0.0))
 
 
 def neq_cost(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.distances import base, bounds
 from repro_torch.distances._wavefront import (
-    l2_cost, matrixify, prepare, sum_last, wavefront_dp)
+    cumsum_seq, l2_cost, matrixify, prepare, sqrt_rn, sum_last, wavefront_dp)
 
 
 def _combine(c, c_du, c_dl, dd, du, dl):
@@ -23,16 +23,16 @@ def erp_batch(xs, ys, len_x=None, len_y=None, device=None):
     dev = xs.device
     cost = l2_cost(xs, ys)
     # gap cost: distance of each element to the gap element g = 0
-    gap_x = torch.sqrt(torch.clamp_min(sum_last(xs * xs), 0.0))  # (B, Lx)
-    gap_y = torch.sqrt(torch.clamp_min(sum_last(ys * ys), 0.0))  # (B, Ly)
+    gap_x = sqrt_rn(torch.clamp_min(sum_last(xs * xs), 0.0))  # (B, Lx)
+    gap_y = sqrt_rn(torch.clamp_min(sum_last(ys * ys), 0.0))  # (B, Ly)
     # mask padding out of the cumulative borders
     gap_x = torch.where(torch.arange(Lx, device=dev)[None, :] < lx[:, None],
                         gap_x, 0.0)
     gap_y = torch.where(torch.arange(Ly, device=dev)[None, :] < ly[:, None],
                         gap_y, 0.0)
     zero = torch.zeros((B, 1), device=dev)
-    border_col = torch.cat([zero, torch.cumsum(gap_x, dim=1)], dim=1)
-    border_row = torch.cat([zero, torch.cumsum(gap_y, dim=1)], dim=1)
+    border_col = torch.cat([zero, cumsum_seq(gap_x)], dim=1)
+    border_row = torch.cat([zero, cumsum_seq(gap_y)], dim=1)
     return wavefront_dp(cost, _combine, border_col, border_row, lx, ly,
                         gap_x=gap_x, gap_y=gap_y)
 

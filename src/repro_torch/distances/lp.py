@@ -14,7 +14,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.distances import base
 from repro_torch.distances._wavefront import (
-    default_lengths, matrixify, prepare)
+    default_lengths, matrixify, prepare, sqrt_rn, sum_last)
 
 
 def euclidean_batch(xs, ys, len_x=None, len_y=None, device=None):
@@ -23,8 +23,9 @@ def euclidean_batch(xs, ys, len_x=None, len_y=None, device=None):
     mask = (torch.arange(L, device=xs.device)[None, :]
             < lx[:, None]).to(torch.float32)
     diff = xs - ys
-    d2 = (torch.sum(diff * diff, dim=-1) * mask).sum(dim=-1)
-    return torch.sqrt(torch.clamp_min(d2, 0.0))
+    # numpy's batch_euclidean: the d-sum, masked, then the L-sum
+    d2 = sum_last(sum_last(diff * diff) * mask)
+    return sqrt_rn(torch.clamp_min(d2, 0.0))
 
 
 def euclidean_matrix(xs, ys, len_x=None, len_y=None, device=None):
@@ -37,7 +38,7 @@ def euclidean_matrix(xs, ys, len_x=None, len_y=None, device=None):
     xn = (xf * xf).sum(dim=1)
     yn = (yf * yf).sum(dim=1)
     d2 = xn[:, None] + yn[None, :] - 2.0 * (xf @ yf.T)
-    return torch.sqrt(torch.clamp_min(d2, 0.0))
+    return sqrt_rn(torch.clamp_min(d2, 0.0))
 
 
 def hamming_batch(xs, ys, len_x=None, len_y=None, device=None):

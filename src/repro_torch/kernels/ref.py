@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distances._wavefront import (BIG, l2_cost, neq_cost,
+from repro_torch.distances._wavefront import (BIG, cumsum_seq, l2_cost,
+                                              neq_cost, sqrt_rn, sum_last,
                                               wavefront_dp)
 
 MODES = ("dtw", "erp", "dfd", "lev")
@@ -55,15 +56,15 @@ def prepare(xs: torch.Tensor, ys: torch.Tensor, mode: str):
     cost = torch.clamp_max(l2_cost(xs, ys), BIG)
     if mode == "erp":
         # gaps and border cumsums clamp at BIG, as in the kernel
-        gap_x = torch.clamp_max(torch.sqrt(torch.clamp_min(
-            (xs * xs).sum(-1), 0.0)), BIG)
-        gap_y = torch.clamp_max(torch.sqrt(torch.clamp_min(
-            (ys * ys).sum(-1), 0.0)), BIG)
+        gap_x = torch.clamp_max(sqrt_rn(torch.clamp_min(
+            sum_last(xs * xs), 0.0)), BIG)
+        gap_y = torch.clamp_max(sqrt_rn(torch.clamp_min(
+            sum_last(ys * ys), 0.0)), BIG)
         zero = torch.zeros((B, 1), device=xs.device)
         border_col = torch.clamp_max(
-            torch.cat([zero, gap_x.cumsum(1)], dim=1), BIG)
+            torch.cat([zero, cumsum_seq(gap_x)], dim=1), BIG)
         border_row = torch.clamp_max(
-            torch.cat([zero, gap_y.cumsum(1)], dim=1), BIG)
+            torch.cat([zero, cumsum_seq(gap_y)], dim=1), BIG)
         return cost, border_col, border_row, gap_x, gap_y
     border_col = torch.full((B, Lx + 1), BIG, device=xs.device)
     border_col[:, 0] = 0.0

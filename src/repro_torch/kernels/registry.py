@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.distances._wavefront import cumsum_seq, sqrt_rn, sum_last
 from repro_torch.kernels.wavefront import BIG, lev_operand, wavefront
 
 #: wavefront mode <-> distance-registry name
@@ -149,12 +150,12 @@ class KernelSpec:
         mask = torch.arange(L, device=xs.device)[None, :] < lx[:, None]
         if self.name == "hamming":
             d = ((xs != ys) & mask).sum(dim=1).to(torch.float32)
-        else:  # euclidean
+        else:  # euclidean: numpy's batch_euclidean, bit for bit
             diff = xs.to(torch.float32) - ys.to(torch.float32)
             d2 = diff * diff
             if d2.ndim == 3:
-                d2 = torch.sum(d2, dim=-1)
-            d = torch.sqrt(torch.clamp_min((d2 * mask).sum(dim=1), 0.0))
+                d2 = sum_last(d2)
+            d = sqrt_rn(torch.clamp_min(sum_last(d2 * mask), 0.0))
         hit = d <= eps_v
         return KernelOut(torch.where(hit, d, BIG), hit,
                          torch.zeros_like(hit))
@@ -163,7 +164,8 @@ class KernelSpec:
         """LB-cascade tier-1 envelope bound (O(B*L) elementwise).
 
         The device mirror of ``distances/bounds.py``'s two-sided envelope
-        bounds (soundness proofs live there): per-row axis-aligned boxes
+        bounds (soundness proofs live there), equal to them bit for bit
+        (numpy's sum orders and root): per-row axis-aligned boxes
         over the valid positions, per-position box distances, and the
         mode-specific combine — sum (dtw), max (dfd), or the ERP element
         consumption + prefix gap-mass refinement.  ``dist`` carries the
@@ -189,7 +191,7 @@ class KernelSpec:
         def box_gap(a, lo, hi):
             g = torch.clamp_min(lo[:, None, :] - a, 0.0) \
                 + torch.clamp_min(a - hi[:, None, :], 0.0)
-            return torch.sqrt(torch.clamp_min((g * g).sum(dim=-1), 0.0))
+            return sqrt_rn(torch.clamp_min(sum_last(g * g), 0.0))
 
         bdx = box_gap(xs, lo_y, hi_y)          # (B, Lx)
         bdy = box_gap(ys, lo_x, hi_x)          # (B, Ly)
@@ -197,18 +199,18 @@ class KernelSpec:
             lb = torch.maximum(torch.where(mx, bdx, 0.0).amax(dim=1),
                                torch.where(my, bdy, 0.0).amax(dim=1))
         elif self.mode == "dtw":
-            lb = torch.maximum((bdx * mx).sum(dim=1), (bdy * my).sum(dim=1))
+            lb = torch.maximum(sum_last(bdx * mx), sum_last(bdy * my))
         else:  # erp
-            gx = torch.where(mx, torch.sqrt(torch.clamp_min(
-                (xs * xs).sum(dim=-1), 0.0)), 0.0)
-            gy = torch.where(my, torch.sqrt(torch.clamp_min(
-                (ys * ys).sum(dim=-1), 0.0)), 0.0)
+            gx = torch.where(mx, sqrt_rn(torch.clamp_min(
+                sum_last(xs * xs), 0.0)), 0.0)
+            gy = torch.where(my, sqrt_rn(torch.clamp_min(
+                sum_last(ys * ys), 0.0)), 0.0)
             cons = torch.maximum(
-                (torch.minimum(gx, bdx) * mx).sum(dim=1),
-                (torch.minimum(gy, bdy) * my).sum(dim=1))
+                sum_last(torch.minimum(gx, bdx) * mx),
+                sum_last(torch.minimum(gy, bdy) * my))
             z = torch.zeros((B, 1), device=dev)
-            Gx = torch.cat([z, torch.cumsum(gx, dim=1)], dim=1)
-            Gy = torch.cat([z, torch.cumsum(gy, dim=1)], dim=1)
+            Gx = torch.cat([z, cumsum_seq(gx)], dim=1)
+            Gy = torch.cat([z, cumsum_seq(gy)], dim=1)
             Tx = Gx.gather(1, lx[:, None])[:, 0]
             Ty = Gy.gather(1, ly[:, None])[:, 0]
             a = Gx.gather(1, (lx // 2)[:, None])[:, 0]

@@ -16,6 +16,13 @@ function:
   is clamped to ``BIG``;
 * ragged rows: each row carries ``(len_x, len_y)`` and its answer is read off
   diagonal ``len_x + len_y``;
+* float costs and ERP gaps are square roots of sums of squares over ``d``,
+  summed in numpy's ``pairwise_sum`` order and rooted correctly rounded,
+  and the ERP borders are left-to-right prefix sums
+  (``distances/_wavefront.py``: ``sum_last``, ``sqrt_rn``, ``cumsum_seq``):
+  the kernel and its plain version equal the reference's numpy lane
+  (``distances/np_backend.py``) bit for bit, so a row whose ``eps`` is
+  its numpy distance is a hit on every device;
 * fused ε-pruning: a row is certified ``> eps`` when ``min(new, d1)`` over the
   whole dispatch width ``Lx + 1`` (padding cells included) exceeds ``eps``
   on some step up to its answer diagonal (every monotone path touches one of
@@ -48,7 +55,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.distances._wavefront import sum_last
+from repro_torch.distances._wavefront import cumsum_seq, sqrt_rn, sum_last
 from repro_torch.kernels import build
 
 BIG = 3.4e37
@@ -118,16 +125,6 @@ def wavefront(xs, ys, lens, eps, *, mode: str) -> Out:
     return wavefront_cuda(xs, ys, lens, eps, mode=mode)
 
 
-def _cumsum_seq(t: torch.Tensor) -> torch.Tensor:
-    """Prefix sums along axis 1, left to right one add at a time — the
-    order of numpy's host wavefront on every device (a CUDA scan may
-    associate differently)."""
-    cols = [t[:, 0]]
-    for j in range(1, t.shape[1]):
-        cols.append(cols[-1] + t[:, j])
-    return torch.stack(cols, dim=1)
-
-
 def padded_layout(xs, ys, lens, mode: str):
     """The reference's padded wavefront layout (its ``KernelSpec._wavefront``
     prep), the first step of the plain version: x shift-padded so position
@@ -156,9 +153,9 @@ def padded_layout(xs, ys, lens, mode: str):
     gap_x = torch.zeros((B, Lx + 1), device=dev)
     gap_y_rev = torch.zeros((B, Ypad), device=dev)
     if mode == "erp":
-        gx = torch.clamp_max(torch.sqrt(torch.clamp_min(
+        gx = torch.clamp_max(sqrt_rn(torch.clamp_min(
             sum_last(xs * xs), 0.0)), BIG)
-        gy = torch.clamp_max(torch.sqrt(torch.clamp_min(
+        gy = torch.clamp_max(sqrt_rn(torch.clamp_min(
             sum_last(ys * ys), 0.0)), BIG)
         # zero the padding tail so border cumsums end at (len_x, len_y)
         gx = torch.where(torch.arange(Lx, device=dev)[None, :]
@@ -171,9 +168,9 @@ def padded_layout(xs, ys, lens, mode: str):
         # clamp: a cumsum above the BIG sentinel would corrupt the DP's
         # quasi-infinity ordering (and overflow to inf three adds later)
         border_col = torch.clamp_max(
-            torch.cat([zero, _cumsum_seq(gx)], dim=1), BIG)
+            torch.cat([zero, cumsum_seq(gx)], dim=1), BIG)
         border_row = torch.clamp_max(
-            torch.cat([zero, _cumsum_seq(gy)], dim=1), BIG)
+            torch.cat([zero, cumsum_seq(gy)], dim=1), BIG)
     elif mode == "lev":
         border_col = torch.arange(Lx + 1, dtype=torch.float32,
                                   device=dev).repeat(B, 1)
@@ -219,12 +216,9 @@ def wavefront_torch(xs, ys, lens, eps, *, mode: str) -> Out:
         if mode == "lev":  # int32 ids, compared as integers
             c = (x_pad[..., 0] != ysl[..., 0]).to(torch.float32)
         else:
-            diff = x_pad[..., 0] - ysl[..., 0]
-            acc = diff * diff
-            for t in range(1, d):
-                diff = x_pad[..., t] - ysl[..., t]
-                acc = acc + diff * diff
-            c = torch.clamp_max(torch.sqrt(torch.clamp_min(acc, 0.0)), BIG)
+            diff = x_pad - ysl  # squares first, then numpy's sum over d
+            c = torch.clamp_max(sqrt_rn(torch.clamp_min(
+                sum_last(diff * diff), 0.0)), BIG)
         dd = _shift_right(d2)
         du = _shift_right(d1)
         dl = d1

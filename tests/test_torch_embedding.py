@@ -141,7 +141,11 @@ def test_embedding_config_and_shim(embedded):
 def test_euclidean_at_embedding_width_is_one_reduction(monkeypatch):
     """d = 960: the elementwise Euclidean of the kernel registry (and of
     the ``torch`` distance backend) agrees with the reference's and sums
-    the feature axis in one reduction, not one add per feature."""
+    the feature axis in a fixed number of vectorised adds, not one add per
+    feature: numpy's pairwise order (which it now equals bit for bit)
+    takes 24 a call at d = 960, 14 block adds and 3 tree levels over the
+    eight leaves of 120 terms at once and 7 joining the leaves."""
+    from repro.distances import np_backend
     from repro_torch.distances import get
     rng = np.random.default_rng(9)
     xs = rng.normal(size=(33, 1, 960)).astype(np.float32)
@@ -155,7 +159,11 @@ def test_euclidean_at_embedding_width_is_one_reduction(monkeypatch):
     got = kernels.get("euclidean").batch(xs, ys, eps=3.0, device="cpu")
     direct = get("euclidean").batch(xs, ys, device="cpu")
     monkeypatch.undo()
-    assert len(adds) < 8
+    assert len(adds) <= 2 * 24
+    exact = np_backend.batch_euclidean(xs, ys)
+    np.testing.assert_array_equal(direct.numpy(), exact)
+    np.testing.assert_array_equal(got.dist.numpy()[got.hit.numpy()],
+                                  exact[got.hit.numpy()])
     np.testing.assert_array_equal(got.hit.numpy(), np.asarray(want.hit))
     assert 0 < int(got.hit.sum()) < 33
     np.testing.assert_allclose(got.dist.numpy(), np.asarray(want.dist),

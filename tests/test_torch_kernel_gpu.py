@@ -213,6 +213,82 @@ def test_envelope_spec_on_the_card_matches_the_cpu(cuda_device, name):
     assert torch.equal(got.pruned.cpu(), want.pruned)
 
 
+#: feature widths of the numpy-order checks: left to right below 8, eight
+#: running sums up to 128, numpy's halving above
+NUMPY_DS = [1, 2, 3, 7, 8, 9, 16, 60, 130, 300]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", NUMPY_DS)
+@pytest.mark.parametrize("mode", ["dtw", "erp", "dfd"])
+def test_cuda_kernel_bit_equal_to_numpy(cuda_device, mode, d):
+    """The kernel's float modes equal the numpy lane
+    (``np_backend.batch_alignment``) bit for bit in both schedules (a
+    thread a row, a block a row), with seeded content past the lengths; ε
+    at each row's distance is a hit, one ulp under it a miss."""
+    from repro_torch.distances import np_backend
+    rng = np.random.default_rng(300 + d)
+    for B, Lx, Ly in ((96, 13, 9), (6, 40, 36)):
+        ops = _ragged(False, B, Lx, Ly, rng, d, cuda_device, nonzero=True)
+        xs, ys, lens = (t.cpu().numpy() for t in ops)
+        want = np_backend.batch_alignment(xs, ys, mode, lens[:, 0],
+                                          lens[:, 1])
+        inf = torch.full((B,), float("inf"), device=cuda_device)
+        got = wf.wavefront_cuda(*ops, inf, mode=mode)[0]
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        at = wf.wavefront_cuda(
+            *ops, torch.as_tensor(want, device=cuda_device), mode=mode)
+        under = wf.wavefront_cuda(*ops, torch.as_tensor(
+            np.nextafter(want, -np.inf), device=cuda_device), mode=mode)
+        assert bool(at[1].all()) and not bool(under[1].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", NUMPY_DS)
+def test_elementwise_and_envelope_specs_bit_equal_to_numpy(cuda_device, d):
+    """On CUDA tensors the ``kernel`` backend's Euclidean equals
+    ``np_backend.batch_euclidean`` and the ``lb:`` specs equal
+    ``bounds.lb_*_envelope``, bit for bit."""
+    from repro_torch.distances import bounds, np_backend
+    from repro_torch.kernels import registry
+    rng = np.random.default_rng(400 + d)
+    xs = np.cumsum(rng.normal(scale=0.5, size=(64, 13, d)), 1).astype(
+        np.float32)
+    ys = np.cumsum(rng.normal(scale=0.5, size=(64, 9, d)), 1).astype(
+        np.float32)
+    lx, ly = rng.integers(1, 14, 64), rng.integers(1, 10, 64)
+    lx[0], ly[0] = 13, 9
+    got = registry.get("euclidean").batch(xs[:, :9], ys, ly, ly,
+                                          device=cuda_device)
+    np.testing.assert_array_equal(
+        got.dist.cpu().numpy(), np_backend.batch_euclidean(xs[:, :9], ys,
+                                                           ly))
+    for name, bound in (("dtw", bounds.lb_dtw_envelope),
+                        ("erp", bounds.lb_erp_envelope),
+                        ("frechet", bounds.lb_frechet_envelope)):
+        got = registry.get_envelope(name).batch(xs, ys, lx, ly,
+                                                device=cuda_device)
+        np.testing.assert_array_equal(got.dist.cpu().numpy(),
+                                      bound(xs, ys, lx, ly), err_msg=name)
+
+
+@pytest.mark.gpu
+def test_sqrt_rn_is_numpys_on_the_card(cuda_device, record_property):
+    """``sqrt_rn`` on the card equals ``np.sqrt`` on 2**20 f32 values.  The
+    port uses it everywhere whatever the card's own float32 ``torch.sqrt``
+    does; that one's disagreements are only recorded."""
+    from repro_torch.distances._wavefront import sqrt_rn
+    rng = np.random.default_rng(0)
+    v = (rng.random(1 << 20) * rng.choice([1e-6, 1e-3, 1.0, 1e3, 1e6, 1e30],
+                                          1 << 20)).astype(np.float32)
+    t = torch.as_tensor(v, device=cuda_device)
+    np.testing.assert_array_equal(sqrt_rn(t).cpu().numpy(), np.sqrt(v))
+    own = int((torch.sqrt(t).cpu().numpy() != np.sqrt(v)).sum())
+    record_property("torch_sqrt_f32_mismatches", own)
+    print(f"torch.sqrt (f32, {torch.cuda.get_device_name(0)}) differs from "
+          f"np.sqrt on {own} of {v.size} values")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,lb", [("levenshtein", "off"),
                                      ("erp", "off"), ("erp", "envelope")])

@@ -9,7 +9,9 @@ Tolerance: Levenshtein distances are bit-equal; float modes agree to
 ``rtol = atol = 1e-6``.  Both sides run the same f32 operations in the same
 order on the CPU; the only freedom is the order of XLA's sum over the
 feature axis (``d``) and of its border cumsum, which can move a last bit.
-Hit and prune masks are equal.  The CUDA kernel itself is held against its
+Hit and prune masks are equal.  The port is bit-equal to the reference's
+numpy lane (``tests/test_torch_numpy_order.py``) and held to this jnp lane
+by the tolerance above.  The CUDA kernel itself is held against its
 plain version on the card in ``test_torch_kernel_gpu.py``.
 """
 
