@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import spans
 from repro_torch.distances import base as dist_base
 from repro_torch.distances import bounds
 from repro_torch.distances import np_backend
@@ -272,11 +273,12 @@ class CountedDistance:
                                          bucket)
 
         self._charge(bucket, int(idxs.size))
-        ys = self._windows(idxs)
-        if eps is not None and self.fused:
-            return np.asarray(self._batch(xs, ys, lx, ly, eps=eps),
-                              np.float32)
-        return np.asarray(self._batch(xs, ys, lx, ly), np.float32)
+        with spans.span("counter.eval"):
+            ys = self._windows(idxs)
+            if eps is not None and self.fused:
+                return np.asarray(self._batch(xs, ys, lx, ly, eps=eps),
+                                  np.float32)
+            return np.asarray(self._batch(xs, ys, lx, ly), np.float32)
 
     def _charge(self, bucket: str, rows: int) -> None:
         if bucket == BUILD:
@@ -352,14 +354,15 @@ class CountedDistance:
         n_exact = int(exact.sum())
         if n_exact:
             self._charge(bucket, n_exact)
-            ys_exact = self._windows(idxs[exact])
-            if self.fused:
-                vals = self._batch(xs[exact], ys_exact, lx[exact],
-                                   ly[exact], eps=eps_v[exact])
-            else:
-                vals = self._batch(xs[exact], ys_exact, lx[exact],
-                                   ly[exact])
-            out[exact] = np.asarray(vals, np.float32)
+            with spans.span("counter.eval"):
+                ys_exact = self._windows(idxs[exact])
+                if self.fused:
+                    vals = self._batch(xs[exact], ys_exact, lx[exact],
+                                       ly[exact], eps=eps_v[exact])
+                else:
+                    vals = self._batch(xs[exact], ys_exact, lx[exact],
+                                       ly[exact])
+                out[exact] = np.asarray(vals, np.float32)
         return out
 
     def lower_bounds(self, qs: np.ndarray, idxs: Sequence[int],

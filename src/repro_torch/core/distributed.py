@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import spans
 from repro_torch.core import _deprecation
 from repro_torch.core.refnet import ReferenceNet
 from repro_torch.distances import bounds
@@ -187,6 +188,7 @@ def _operand_of(dist_name: str):
     return torch.as_tensor
 
 
+@spans.traced("refnet.flatten")
 def flatten_net(net: ReferenceNet, pivot_level: Optional[int] = None
                 ) -> FlatNet:
     """Flatten a host reference net at ``pivot_level`` (default ~sqrt(N)).
@@ -323,11 +325,12 @@ def device_range_query(flat: FlatNet, qs: np.ndarray, eps: float, *,
         q_lens = np.full(Q, qs.shape[1], np.int32)
     use_env = bounds.normalize_tier(lb_cascade) == "envelope" \
         and flat.envelopes is not None
-    arrs = flat.device_arrays(dev)
+    with spans.span("oneshot.upload"):
+        arrs = flat.device_arrays(dev)
+        qs_t = _operand_of(flat.dist_name)(np.asarray(qs)).to(dev)
+        q_lens_t = device_mod.as_tensor(np.asarray(q_lens), dev, torch.int64)
     hits, n_need, n_evals, n_pruned, lb_rows, lb_pruned = _device_query(
-        _operand_of(flat.dist_name)(np.asarray(qs)).to(dev),
-        device_mod.as_tensor(np.asarray(q_lens), dev, torch.int64),
-        arrs, float(eps), flat.dist_name, use_env)
+        qs_t, q_lens_t, arrs, float(eps), flat.dist_name, use_env)
     stats = {"pivot_evals": Q * flat.n_pivots,
              "member_evals": n_evals,
              "fused_pruned": n_pruned,
@@ -335,7 +338,10 @@ def device_range_query(flat: FlatNet, qs: np.ndarray, eps: float, *,
              "lb_pruned": lb_pruned,
              "capacity": final_capacity(capacity, n_need),
              "total_evals": Q * flat.n_pivots + n_evals}
-    return hits.cpu().numpy(), stats
+    with spans.span("oneshot.fetch"):
+        with spans.span("oneshot.wait"):
+            hits = hits.cpu()
+        return hits.numpy(), stats
 
 
 def _device_query(qs, q_lens, arrs, eps: float, dist_name: str,
@@ -354,57 +360,69 @@ def _device_query(qs, q_lens, arrs, eps: float, dist_name: str,
     P, M = members.shape
     N = data.shape[0]
     spec = kernel_registry.get(dist_name)
-    # 1. queries x pivots — value-consuming (feeds the ring bounds)
-    qs_rep = qs.repeat_interleave(P, dim=0)
-    pv_rep = pivots.repeat((Q,) + (1,) * (pivots.ndim - 1))
-    dp = spec.device_call(qs_rep, pv_rep, lx=q_lens.repeat_interleave(P)
-                          ).dist.reshape(Q, P)
-    # 2. pivot verdicts
-    acc_all = dp + pradius[None, :] <= eps            # accept whole list
-    prune_all = dp - pradius[None, :] > eps
-    undecided = ~(acc_all | prune_all)
-    # 3. member ring bounds for undecided pivots
-    lo = (dp[:, :, None] - mem_dist[None, :, :]).abs()   # (Q, P, M)
-    hi = dp[:, :, None] + mem_dist[None, :, :]
-    member_live = mem_valid[None, :, :] & undecided[:, :, None]
-    accept_m = member_live & (hi <= eps)
-    need_eval = member_live & (lo <= eps) & (hi > eps)
-    del lo, hi, member_live
-    # free verdicts into the (Q, N) hit mask: an index-put of True at the
-    # accepted (q, w) pairs (duplicates are harmless)
-    hits = torch.zeros((Q, N), dtype=torch.bool, device=dev)
-    free_in = (acc_all[:, :, None] & mem_valid[None]) | accept_m
-    qq, pp, mm = free_in.nonzero(as_tuple=True)
-    hits[qq, members[pp, mm]] = True
-    del free_in, accept_m
-    # 4. compact survivors (exact size: every selected row is real) and
-    # evaluate — fused ε: the kernel returns the hit mask directly
-    sel = need_eval.reshape(-1).nonzero().squeeze(1)
-    del need_eval
-    n_need = int(sel.numel())
-    q_of = sel // (P * M)
-    w_of = members.reshape(-1)[sel % (P * M)]
-    lb_rows = lb_pruned = 0
-    if use_env:
-        # 4b. envelope stage on the compacted survivors: gather the
-        # PRECOMPUTED per-window boxes/masses (built once at flatten time)
-        # and compact a second time, so only rows the envelope bound cannot
-        # certify as > eps reach the exact wavefront.  One-direction form of
-        # the sound bounds in ``distances/bounds.py::lb_envelope_rows``.
-        lb = _envelope_rows(dist_name, qs[q_of], q_lens[q_of],
-                            arrs["env_lo"][w_of], arrs["env_hi"][w_of],
-                            arrs["env_mass"][w_of])
-        keep = (lb <= eps).nonzero().squeeze(1)
-        lb_rows = n_need
-        lb_pruned = n_need - int(keep.numel())
-        q_of, w_of = q_of[keep], w_of[keep]
-    n_evals = int(q_of.numel())
-    n_pruned = 0
-    if n_evals:
-        out = spec.device_call(qs[q_of], data[w_of], lx=q_lens[q_of],
-                               eps=eps)
-        hits[q_of[out.hit], w_of[out.hit]] = True
-        n_pruned = int(out.pruned.sum())
+    # each read that blocks on the card (a nonzero, a boolean index, a sum
+    # read back) is an ``oneshot.wait`` span inside its phase
+    with spans.span("oneshot.pivots"):
+        # 1. queries x pivots — value-consuming (feeds the ring bounds)
+        qs_rep = qs.repeat_interleave(P, dim=0)
+        pv_rep = pivots.repeat((Q,) + (1,) * (pivots.ndim - 1))
+        dp = spec.device_call(qs_rep, pv_rep, lx=q_lens.repeat_interleave(P)
+                              ).dist.reshape(Q, P)
+    with spans.span("oneshot.bounds"):
+        # 2. pivot verdicts
+        acc_all = dp + pradius[None, :] <= eps            # accept whole list
+        prune_all = dp - pradius[None, :] > eps
+        undecided = ~(acc_all | prune_all)
+        # 3. member ring bounds for undecided pivots
+        lo = (dp[:, :, None] - mem_dist[None, :, :]).abs()   # (Q, P, M)
+        hi = dp[:, :, None] + mem_dist[None, :, :]
+        member_live = mem_valid[None, :, :] & undecided[:, :, None]
+        accept_m = member_live & (hi <= eps)
+        need_eval = member_live & (lo <= eps) & (hi > eps)
+        del lo, hi, member_live
+        # free verdicts into the (Q, N) hit mask: an index-put of True at
+        # the accepted (q, w) pairs (duplicates are harmless)
+        hits = torch.zeros((Q, N), dtype=torch.bool, device=dev)
+        free_in = (acc_all[:, :, None] & mem_valid[None]) | accept_m
+        with spans.span("oneshot.wait"):
+            qq, pp, mm = free_in.nonzero(as_tuple=True)
+        hits[qq, members[pp, mm]] = True
+        del free_in, accept_m
+    with spans.span("oneshot.compact"):
+        # 4. compact survivors (exact size: every selected row is real)
+        with spans.span("oneshot.wait"):
+            sel = need_eval.reshape(-1).nonzero().squeeze(1)
+        del need_eval
+        n_need = int(sel.numel())
+        q_of = sel // (P * M)
+        w_of = members.reshape(-1)[sel % (P * M)]
+    with spans.span("oneshot.survivors"):
+        lb_rows = lb_pruned = 0
+        if use_env:
+            # 4b. envelope stage on the compacted survivors: gather the
+            # PRECOMPUTED per-window boxes/masses (built once at flatten
+            # time) and compact a second time, so only rows the envelope
+            # bound cannot certify as > eps reach the exact wavefront.
+            # One-direction form of the sound bounds in
+            # ``distances/bounds.py::lb_envelope_rows``.
+            lb = _envelope_rows(dist_name, qs[q_of], q_lens[q_of],
+                                arrs["env_lo"][w_of], arrs["env_hi"][w_of],
+                                arrs["env_mass"][w_of])
+            with spans.span("oneshot.wait"):
+                keep = (lb <= eps).nonzero().squeeze(1)
+            lb_rows = n_need
+            lb_pruned = n_need - int(keep.numel())
+            q_of, w_of = q_of[keep], w_of[keep]
+        n_evals = int(q_of.numel())
+        n_pruned = 0
+        if n_evals:
+            # and evaluate — fused ε: the kernel returns the hit mask
+            out = spec.device_call(qs[q_of], data[w_of], lx=q_lens[q_of],
+                                   eps=eps)
+            with spans.span("oneshot.wait"):
+                hits[q_of[out.hit], w_of[out.hit]] = True
+            with spans.span("oneshot.wait"):
+                n_pruned = int(out.pruned.sum())
     return hits, n_need, n_evals, n_pruned, lb_rows, lb_pruned
 
 

@@ -55,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core import batch_engine
 from repro_torch.core.counter import CountedDistance
 from repro_torch.distances import base as dist_base
@@ -295,6 +296,7 @@ class ReferenceNet:
         self._attach(out.idx, out.target_level, out.owners,
                      attach_level=out.attach_level)
 
+    @spans.traced("refnet.build")
     def build_batched(self, order: Optional[Sequence[int]] = None, *,
                       max_cohort: int = 256,
                       engine: Optional["batch_engine.BatchEngine"] = None

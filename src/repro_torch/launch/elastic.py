@@ -75,6 +75,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import spans
+
 
 def _hrw_score(window_id: int, worker: str) -> int:
     h = hashlib.blake2b(f"{window_id}:{worker}".encode(),
@@ -472,6 +474,7 @@ class ElasticIndex:
 
     # -- one-shot stacked serving (fallback) --------------------------------
 
+    @spans.traced("fleet.oneshot")
     def _oneshot_query(self, rows: List[np.ndarray], eps: float,
                        dead_ix: Tuple[int, ...],
                        capacity: Optional[int]) -> List[List[int]]:
@@ -502,13 +505,15 @@ class ElasticIndex:
             q_lens=None if (q_lens == qb.shape[1]).all()
             else q_lens.astype(np.int32))
         self._note_stats(stats)
-        for i, w in enumerate(self.workers):
-            if res[i] is None:
-                continue
-            gids = self.shards[w].gids
-            for qi in range(len(rows)):
-                hits[qi].update(gids[np.flatnonzero(res[i][qi])].tolist())
-        return [sorted(h) for h in hits]
+        with spans.span("fleet.map_hits"):
+            for i, w in enumerate(self.workers):
+                if res[i] is None:
+                    continue
+                gids = self.shards[w].gids
+                for qi in range(len(rows)):
+                    hits[qi].update(
+                        gids[np.flatnonzero(res[i][qi])].tolist())
+            return [sorted(h) for h in hits]
 
     def _note_stats(self, stats: Sequence[Optional[dict]]) -> None:
         """Accumulate device-path evaluation totals (merged fleet stats are

@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch import device as device_mod
+from repro_torch import spans
 from repro_torch.core import _deprecation
 from repro_torch.retrieval.config import RetrievalConfig
 
@@ -505,6 +506,7 @@ class Retriever:
             return plan._execution
         return "batched" if self._mode == "fleet" else self.config.execution
 
+    @spans.traced("retriever.range")
     def _range(self, plan: QueryPlan, eps: float) -> ResultSet:
         before = self._snap()
         execution = self._execution(plan)

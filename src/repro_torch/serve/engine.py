@@ -36,7 +36,9 @@ Latency accounting rides the request records themselves
 clocks drive the same machinery: :meth:`start`/:meth:`submit` serve
 wall-clock traffic on a background thread, :meth:`run_schedule` replays
 a deterministic arrival schedule on a virtual clock — the count-strict
-serving check of ``chip_smoke.py`` uses the latter.
+serving check of ``chip_smoke.py`` uses the latter.  On the wall clock a
+request completes when the round that finishes it has returned (the
+clock is read then); on the virtual clock, at its tick's time.
 
 Failures surface, never vanish: an exception on the serving thread (a
 tick, or a background resize) fails every queued and in-flight request —
@@ -151,7 +153,8 @@ class ServeEngine:
 
         return hook
 
-    def _admit_one(self, req: Request, now: float) -> Optional[int]:
+    def _admit_one(self, req: Request, now: float,
+                   virtual: bool) -> Optional[int]:
         fleet = self.fleet
         q = np.asarray(req.query)
         qpad, q_lens = q[None], np.asarray([len(q)], np.int64)
@@ -171,7 +174,7 @@ class ServeEngine:
         bid = self._engine.admit(groups, req.eps)
         self._inflight[bid] = (req, gids)
         if self._engine.is_finished(bid):  # e.g. an empty fleet
-            self._finalize(bid, now)
+            self._finalize(bid, now if virtual else self.clock())
             return None
         return bid
 
@@ -185,10 +188,12 @@ class ServeEngine:
         self.completed.append(req)
         return req
 
-    def _round(self, now: float,
+    def _round(self, now: float, virtual: bool,
                only: Optional[Set[int]] = None) -> List[Request]:
         """One merged round over the in-flight set (or the ``only``
-        subset); stamps first-dispatch times, retires finished rows."""
+        subset); stamps first-dispatch times with ``now``, retires finished
+        rows and stamps their requests' completion: ``now`` on the
+        ``virtual`` clock, else the clock read once the round returned."""
         parts = self._engine.batches_in_flight()
         if only is not None:
             parts &= only
@@ -197,14 +202,16 @@ class ServeEngine:
             req.rounds += 1
             if math.isnan(req.t_first_dispatch):
                 req.t_first_dispatch = now
-        return [self._finalize(bid, now)
-                for bid in self._engine.step(only=only)]
+        finished = self._engine.step(only=only)
+        t_done = now if virtual else self.clock()
+        return [self._finalize(bid, t_done) for bid in finished]
 
     def tick(self, now: Optional[float] = None) -> List[Request]:
         """One scheduler beat: swap -> admit -> (greedy round) -> shared
         round.  Returns the requests completed this tick."""
         with self._lock:
-            now = self.clock() if now is None else now
+            virtual = now is not None     # run_schedule's clock
+            now = now if virtual else self.clock()
             if self._resize_error is not None:
                 raise RuntimeError("a background resize failed") \
                     from self._resize_error
@@ -216,16 +223,16 @@ class ServeEngine:
             budget = self.config.max_inflight - len(self._inflight)
             newly: Set[int] = set()
             for req in self.queue.take(max(budget, 0)):
-                bid = self._admit_one(req, now)
+                bid = self._admit_one(req, now, virtual)
                 if bid is not None:
                     newly.add(bid)
             done: List[Request] = []
             if self.config.admission == "greedy" and had_inflight and newly:
                 # dedicated first round: newcomers dispatch immediately
                 # instead of waiting on the shared cadence
-                done.extend(self._round(now, only=newly))
+                done.extend(self._round(now, virtual, only=newly))
             if self._engine.active:
-                done.extend(self._round(now))
+                done.extend(self._round(now, virtual))
             return done
 
     # -- zero-downtime resize ----------------------------------------------

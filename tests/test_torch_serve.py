@@ -10,7 +10,8 @@
   versa; the checkpoint layer writes the reference's ``"a/b/0"`` keys;
 * wall-clock ``start`` / ``submit`` with a background resize serves every
   request exactly, and a failure on the serving thread fails the
-  requests and re-raises from ``close``;
+  requests and re-raises from ``close``; a request served on the wall
+  clock completes at the clock's reading after its last round;
 * the ``launch/serve.py`` CLI runs with ``--device cpu``.
 
 Fleets: the port's ``kernel`` backend on ``device="cpu"``, the
@@ -220,6 +221,37 @@ def test_a_failing_background_resize_surfaces(tmp_path):
         eng.submit(data[0])
     with pytest.raises(RuntimeError, match="serving failed"):
         eng.close()
+
+
+def test_wall_clock_completion_is_read_after_its_round():
+    """A round that takes time shows in the latency: the clock advances
+    one unit in each merged round, and a request completes at the clock's
+    reading after its last round, not at its tick's start."""
+    data = proteins(60, seed=7)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        port = ElasticIndex("levenshtein", data, list(WORKERS),
+                            device="cpu")
+    now = [0.0]
+    eng = serve.ServeEngine(port, serve.ServeConfig(eps=2.0),
+                            clock=lambda: now[0])
+    evaluate = eng._engine.evaluate
+
+    def a_round_takes_one_unit(*args):
+        now[0] += 1.0
+        return evaluate(*args)
+
+    eng._engine.evaluate = a_round_takes_one_unit
+    req = eng.submit(data[5])
+    starts = []
+    while not req.done and len(starts) < 100:
+        starts.append(now[0])
+        eng.tick()
+    assert req.done and not req.failed
+    assert req.hits == port.range_query(data[5], 2.0, batched=False)
+    assert req.rounds >= 1 and now[0] >= 1.0
+    assert req.t_complete == now[0] > starts[-1]
+    assert eng.latency_stats()["p50"] == req.latency == now[0]
 
 
 def test_request_queue_and_facade_serve():
