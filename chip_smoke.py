@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # every phase, one card, exits 0 on success
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc/``
-(``wavefront.cu``, ``pairwise_l2.cu``) with ``nvcc`` for ``sm_90a``, one
-``nvcc`` per source started together, and holds each against its plain torch
-version on the card.  Then it drives the port's two paths:
+(``wavefront.cu``, ``pairwise_l2.cu``, ``ring_filter.cu``) with ``nvcc``
+for ``sm_90a``, one ``nvcc`` per source started together, and holds each
+against its plain torch version on the card.  Then it drives the port's two
+paths:
 
 * the paper's five-step subsequence query through ``repro_torch.retrieval``,
   checked against the port's numpy host backend and run at full size with
@@ -24,7 +25,10 @@ version on the card.  Then it drives the port's two paths:
   tier and the one-shot stage's bounds against the host's); at cell A's
   window size (phase 8, ``--windows-fleet``) the build, rounds and
   one-shot queries, a dead worker and a 4 -> 5 -> 4 resize held to 2/N of
-  the build's evaluations;
+  the build's evaluations; the one-shot query's ring filter on that merged
+  fleet's own ``dp`` (64 queries): both passes through the kernel and the
+  plain version on the same card operands, held equal byte for byte, then
+  timed beside its bound;
 * the continuous-batching serve engine on that fleet (phase 9): a seeded
   virtual-clock schedule against the sequential rounds oracle, wall-clock
   serving across a background snapshot-swap resize, and the serve CLI.
@@ -93,7 +97,8 @@ pairwise kernel runs its products as 3xTF32 on the tensor cores, held to
 the plain version within a derived bound.  Every path is driven with the
 launch counts zeroed just before it, and its launches are held to what it
 must launch: one per counted dispatch or merged round, one plus at most
-one per one-shot fleet query.  Both kernels are timed at their
+one per one-shot fleet query, whose ring filter launches once and its
+pass 2 once when a survivor is left.  The kernels are timed at their
 paths' shapes, with their registers, shared memory and spills.  Each phase
 prints one line; any failure raises and the script exits non-zero.  The
 last line is
@@ -189,7 +194,7 @@ def phase_facts(torch, build) -> dict:
     return facts
 
 
-KERNEL_SOURCES = ("wavefront", "pairwise_l2")
+KERNEL_SOURCES = ("wavefront", "pairwise_l2", "ring_filter")
 
 
 def kernel_name(ptxas_line: str) -> str:
@@ -209,6 +214,10 @@ def kernel_name(ptxas_line: str) -> str:
     if m:
         return (f"pairwise_l2<wg={m.group(1)},n={m.group(2)},"
                 f"{'tma' if m.group(3) == '1' else 'plain'}>")
+    m = re.search(r"ring_(verdicts|scan|rows)_kernel(Ij|Ih)?", ptxas_line)
+    if m:
+        unit = {"Ij": "<word>", "Ih": "<byte>"}.get(m.group(2), "")
+        return f"ring_{m.group(1)}{unit}"
     return "?"
 
 
@@ -1163,8 +1172,9 @@ def fleet_query(torch, wf, dispatch, r, qs, eps, via, label, dead=(),
     """One facade fleet query, driven with the counts zeroed just before;
     checks its launches against what the path must launch: one per merged
     round (rounds), one per counted dispatch (the host loop), one for the
-    query x pivot rows plus one when any survivor is left (one-shot).
-    Returns (ResultSet, seconds, launches, kernel seconds)."""
+    query x pivot rows plus one when any survivor is left (one-shot, whose
+    ring filter launches once, and its pass 2 once when any survivor is
+    left).  Returns (ResultSet, seconds, launches, kernel seconds)."""
     fleet = r.elastic().index
     ds0 = dict(fleet.device_stats)
     qd0 = shard_dispatches(fleet)[0]
@@ -1173,6 +1183,7 @@ def fleet_query(torch, wf, dispatch, r, qs, eps, via, label, dead=(),
         plan = plan.dead(*dead)
     if lb is not None:
         plan = plan.lb(lb)
+    ring0 = ring_launches()
     rs, s, launches, ks, _ = drive(torch, wf, dispatch, label,
                                    lambda: plan.range(eps))
     ds = fleet.device_stats
@@ -1196,6 +1207,15 @@ def fleet_query(torch, wf, dispatch, r, qs, eps, via, label, dead=(),
         if launches != want or dispatch.STATS.dispatches:
             raise AssertionError(f"{label}: one-shot launched {launches} "
                                  f"times, expected {want}")
+        # one filter; its pass 2 when any survivor is left (the envelope
+        # stage counts them all in lb_rows, and may prune every one)
+        need = max(ds["member_evals"] - ds0["member_evals"],
+                   ds["lb_rows"] - ds0["lb_rows"])
+        got = tuple(b - a for a, b in zip(ring0, ring_launches()))
+        if got != (1, int(need > 0)):
+            raise AssertionError(f"{label}: ring filter launched {got} "
+                                 f"(filters, pass 2s), expected "
+                                 f"{(1, int(need > 0))}")
     return rs, s, launches, ks
 
 
@@ -1214,6 +1234,116 @@ def brute_hits(fleet, qs, eps):
     gids = np.concatenate([s.gids for s in alive])
     H = host_reference_hits(merged, qs, eps)
     return [sorted(int(g) for g in gids[row]) for row in H]
+
+
+RING_KERNELS = ("ring_verdicts", "ring_scan", "ring_rows")
+
+
+def ring_launches() -> tuple:
+    """(filters, pass 2s) the one-shot query's ring filter has launched."""
+    from repro_torch.kernels import ring_filter as rf
+    return rf.LAUNCHES, rf.ROW_LAUNCHES
+
+
+def ring_kernel_ms(torch, fn, reps) -> dict:
+    """Device ms a call of ``fn`` of each ring filter kernel, from the
+    profiler's kernel events: CUDA events around a loop would time the
+    wrappers' host code too, and pass 1 takes less device time than its
+    launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(RING_KERNELS, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in RING_KERNELS:
+                if k + "_kernel" in e.name:
+                    out[k] += e.time_range.elapsed_us() / 1e3 / reps
+    silent = [k for k, v in out.items() if not v > 0]
+    if silent:
+        raise AssertionError(f"ring filter: no device time for {silent}")
+    return out
+
+
+def ring_check(torch, dev, flat, qs, eps, reps=200) -> dict:
+    """The ring filter on a merged fleet's own operands (``dp`` from the
+    card's pivot launch, the one-shot query's queries and ``eps``): both
+    passes through the CUDA wrappers and the plain versions on the same
+    card operands, held equal byte for byte (the hit mask after pass 1,
+    ``n_need``, and every row pass 2 writes); then the kernels' device ms,
+    the plain version's ms and the bound from the bytes of this call."""
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels import registry
+    from repro_torch.kernels import ring_filter as rf
+    from repro_torch.roofline import costs
+    launches0 = ring_launches()
+    Q, P, N = len(qs), flat.n_pivots, len(flat.data)
+    arrs = flat.device_arrays(dev)
+    qs_t = dist_mod._operand_of(flat.dist_name)(qs).to(dev).contiguous()
+    q_lens = torch.full((Q,), qs.shape[1], dtype=torch.int32, device=dev)
+    piv = arrs["pivots"]
+    dp = registry.get(flat.dist_name).device_call(
+        qs_t.repeat_interleave(P, dim=0),
+        piv.repeat((Q,) + (1,) * (piv.ndim - 1)),
+        lx=q_lens.repeat_interleave(P)).dist.reshape(Q, P).contiguous()
+    ring = (dp, arrs["pradius"], arrs["mem_pivot"], arrs["mem_id"],
+            arrs["mem_dist"])
+    data = arrs["data"]
+    out = []
+    for f1, f2 in ((rf.ring_filter_cuda, rf.survivor_rows_cuda),
+                   (rf.ring_filter_torch, rf.survivor_rows_torch)):
+        hits = torch.zeros((Q, N), dtype=torch.bool, device=dev)
+        v = f1(*ring, eps, hits)
+        n = int(v.n_need)
+        out.append((hits, n, f2(v, n, qs_t, q_lens, data)))
+    torch.cuda.synchronize()
+    (gh, gn, gr), (wh, wn, wr) = out
+    bad = [k for k, ok in (("hits", torch.equal(gh, wh)),
+                           ("n_need", gn == wn)) if not ok]
+    if not bad:
+        bad = [k for k, g, w in zip(rf.Rows._fields, gr, wr)
+               if g.dtype != w.dtype or not torch.equal(g, w)]
+    if bad or not gn:
+        raise AssertionError(f"ring filter on the merged fleet: {bad} "
+                             f"differ from the plain version (n_need "
+                             f"{gn} vs {wn})")
+
+    def kernel():
+        h = torch.zeros((Q, N), dtype=torch.bool, device=dev)
+        rf.survivor_rows_cuda(rf.ring_filter_cuda(*ring, eps, h), gn, qs_t,
+                              q_lens, data)
+
+    def plain():
+        h = torch.zeros((Q, N), dtype=torch.bool, device=dev)
+        rf.survivor_rows_torch(rf.ring_filter_torch(*ring, eps, h), gn,
+                               qs_t, q_lens, data)
+
+    per = ring_kernel_ms(torch, kernel, reps)
+    ms = sum(per.values())
+    launched = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain, min_ms=200.0, max_iters=20)
+    cost = costs.kernel_cost_report("ring_filter", dp, arrs["mem_id"], qs_t,
+                                    data, n_need=gn)
+    nv = arrs["mem_id"].numel()
+    Pm, M = flat.members.shape
+    res = dict(Q=Q, P=P, Nv=nv, N=N, n_need=gn, filter_slots=Q * nv,
+               padded_slots=Q * Pm * M, ms=ms,
+               **{k + "_ms": v for k, v in per.items()},
+               launched_ms=launched, plain_ms=plain_ms,
+               bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
+               bytes=cost["bytes"])
+    log("fleet8-ring", held_to=repr("the plain version, byte for byte"),
+        **{k: (f"{v:.4f}" if isinstance(v, float) and k.endswith("ms")
+               else v) for k, v in res.items()},
+        share=f"{cost['bound_ms'] / ms:.3f}")
+    res["launches"] = tuple(b - a for a, b in zip(launches0,
+                                                  ring_launches()))
+    return res
 
 
 def phase_fleet_parity(torch, wf, dispatch, dev) -> int:
@@ -1398,14 +1528,17 @@ def phase_fleet_full(torch, wf, dispatch, args, dev) -> dict:
                build_launches=launches)
 
     qs = mutate(data, 64, seed=5)
-    res = {}
+    res, ring_by_path = {}, {}
     for via in ("fleet-rounds", "fleet-oneshot"):
         ds0 = dict(fleet.device_stats)
         torch.cuda.synchronize()
         base_mem = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        ring0 = ring_launches()
         rs, s, launches, ks = fleet_query(torch, wf, dispatch, r, qs, 2.0,
                                           via, f"fleet8-{via}")
+        ring_by_path["fleet8_" + via.split("-")[1]] = tuple(
+            b - a for a, b in zip(ring0, ring_launches()))
         peak = torch.cuda.max_memory_allocated(dev) - base_mem
         total += launches
         res[via] = rs.hits
@@ -1414,16 +1547,15 @@ def phase_fleet_full(torch, wf, dispatch, args, dev) -> dict:
         if via == "fleet-oneshot":
             merged = fleet._merged[1][0]
             P, M = merged.members.shape
-            # lo, hi (f32) and four (Q, P, M) masks; dp and three (Q, P)
-            # masks; the (Q, N) hit mask
-            reckoned = len(qs) * P * M * (2 * 4 + 4) \
-                + len(qs) * P * (4 + 3) + len(qs) * len(merged.data)
-            extra = dict(Q=len(qs), P=P, M=M, qpm_bytes=reckoned,
-                         peak_bytes=peak,
+            # the ring filter visits Q x (valid pairs) slots, where the
+            # padded broadcast it replaced touched Q x P x M
+            slots = len(qs) * int((merged.members >= 0).sum())
+            extra = dict(Q=len(qs), P=P, M=M, filter_slots=slots,
+                         padded_slots=len(qs) * P * M, peak_bytes=peak,
                          survivors=ds["member_evals"] - ds0["member_evals"])
             row.update(oneshot_s=s, oneshot_kernel_s=ks,
                        oneshot_evals=rs.stats["device_evals"],
-                       oneshot_launches=launches, qpm_bytes=reckoned,
+                       oneshot_launches=launches, filter_slots=slots,
                        peak_bytes=peak)
         else:
             extra = dict(rounds=ds["rounds"] - ds0["rounds"])
@@ -1438,13 +1570,18 @@ def phase_fleet_full(torch, wf, dispatch, args, dev) -> dict:
     if res["fleet-rounds"] != res["fleet-oneshot"]:
         raise AssertionError("fleet: rounds and one-shot hits differ")
     full = res["fleet-rounds"]
+    # the filter on the one-shot query's own merged fleet, at its eps
+    row["ring"] = ring_check(torch, dev, merged, qs, 2.0)
 
     lost = set(fleet.assignment["w1"])
     survivors = [[h for h in hs if h not in lost] for hs in full]
     for via in ("fleet-rounds", "fleet-oneshot"):
+        ring0 = ring_launches()
         rs, s, launches, _ = fleet_query(torch, wf, dispatch, r, qs, 2.0,
                                          via, f"fleet8-dead-{via}",
                                          dead=("w1",))
+        ring_by_path["fleet8_dead_" + via.split("-")[1]] = tuple(
+            b - a for a, b in zip(ring0, ring_launches()))
         total += launches
         if rs.hits != survivors:
             raise AssertionError(f"dead w1 ({via}): hits are not the "
@@ -1475,8 +1612,11 @@ def phase_fleet_full(torch, wf, dispatch, args, dev) -> dict:
             gate="2/N = 0.5", launches=launches, s=f"{s:.2f}",
             host_s=f"{s - ks:.2f}", kernel_s=f"{ks:.4f}")
     for via in ("fleet-rounds", "fleet-oneshot"):
+        ring0 = ring_launches()
         rs, s, launches, _ = fleet_query(torch, wf, dispatch, r, qs, 2.0,
                                          via, f"fleet8-after-{via}")
+        ring_by_path["fleet8_after_" + via.split("-")[1]] = tuple(
+            b - a for a, b in zip(ring0, ring_launches()))
         total += launches
         if rs.hits != full:
             raise AssertionError(f"after 4 -> 5 -> 4 ({via}): hit sets "
@@ -1484,6 +1624,11 @@ def phase_fleet_full(torch, wf, dispatch, args, dev) -> dict:
     log("fleet8-done", round_trip_hits="equal", launches=total,
         s=f"{time.perf_counter() - t_phase:.2f}")
     row["launches"] = total
+    rounds = {k: v for k, v in ring_by_path.items() if k.endswith("rounds")}
+    if any(map(any, rounds.values())):
+        raise AssertionError(f"the rounds path ran the ring filter: {rounds}")
+    row["ring_by_path"] = {k: v for k, v in ring_by_path.items()
+                           if k not in rounds}
     return {"retriever": r, "data": data, "row": row}
 
 
@@ -3574,6 +3719,31 @@ def phase_examples(torch, wf, pl2, dispatch, dev, cpu_runs, lm_init
     return {"launches": launches}
 
 
+def ring_filter_entry(ring7, fleet8_row) -> dict:
+    """The ring filter's entry of the ``kernels`` line: its launches,
+    (filters, pass 2s), in all and by path (the one-shot queries of phases
+    7 and 8, and any other phase's; the check's own launches on phase 8's
+    merged fleet are left out), and the check's times and bound."""
+    ring = fleet8_row["ring"]
+    paths = {"fleet7": ring7, **fleet8_row["ring_by_path"]}
+    every = tuple(t - c for t, c in zip(ring_launches(), ring["launches"]))
+    paths["other_phases"] = tuple(t - sum(v[i] for v in paths.values())
+                                  for i, t in enumerate(every))
+    return {
+        "name": "ring_filter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ring_filter.cu",
+        "replaces": "src/repro/core/distributed.py:308",
+        "launches": every[0], "row_launches": every[1],
+        "launches_by_path": paths,
+        "held_to": "the plain version, byte for byte, on phase 8's merged "
+                   "fleet",
+        **{k: ring[k] for k in ("Q", "P", "Nv", "N", "n_need", "ms",
+                                "ring_verdicts_ms", "ring_scan_ms",
+                                "ring_rows_ms", "launched_ms", "plain_ms",
+                                "bound_ms", "bound_by")},
+        "library_ms": None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 20,000 windows build in 120-210 s on the H100 host; step 4 at lam=40
@@ -3658,7 +3828,9 @@ def main(argv=None) -> int:
     full = phase_full(torch, wf, dispatch, args, dev)
     emb = phase_embedding(torch, pl2, args, dev)
     t_fleet = time.perf_counter()
+    ring0 = ring_launches()
     fleet_launches = phase_fleet_parity(torch, wf, dispatch, dev)
+    ring7 = tuple(b - a for a, b in zip(ring0, ring_launches()))
     fleet8 = phase_fleet_full(torch, wf, dispatch, args, dev)
     serve = phase_serve(torch, wf, dispatch, dev, fleet8)
     log("fleet-serve-phases", s=f"{time.perf_counter() - t_fleet:.2f}",
@@ -3726,7 +3898,7 @@ def main(argv=None) -> int:
                              "examples": examples["launches"]["pairwise_l2"]},
         **l2_err,
         "max_abs_err_ssm_embedding": ssm["embedding"]["max_abs_err"],
-        **l2_rows[0]}]
+        **l2_rows[0]}, ring_filter_entry(ring7, fleet8["row"])]
     log("total", s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(facts["smi"])

@@ -18,17 +18,24 @@ batched range query is then:
   4. survivors are compacted and evaluated in one more kernel call (none
      when nothing survives).
 
-The reference compacts with a static capacity (``jnp.nonzero(size=)``)
-and retries at twice the capacity on overflow.  PyTorch compacts to the
-exact survivor count (``torch.nonzero``: one host synchronisation each),
-so nothing is retried; ``stats["capacity"]`` still reports the capacity
-the reference's doubling rule ends at, computed from the survivor count.
+The reference runs 2-4 as jnp ops over the member lists padded to the
+widest one, ``(Q, P, M)``, and compacts with a static capacity
+(``jnp.nonzero(size=)``), retrying at twice the capacity on overflow.  The
+port runs them in the ring filter (``kernels/ring_filter.py``: a CUDA
+kernel on the card, its plain torch version on the CPU) over the real
+(pivot, member) pairs only, ``Q * Nv`` slots, and compacts to the exact
+survivor count, in the same order, after one read of that count; nothing
+is retried, and ``stats["capacity"]`` still reports the capacity the
+reference's doubling rule ends at, computed from the survivor count.
+``stats["filter_slots"]`` counts the slots the filter visited and
+``stats["padded_slots"]`` the ``Q * P * M`` the padded broadcast touches.
 
-The FlatNet's arrays (and envelopes) are uploaded to a device once per
-FlatNet version and kept there (:meth:`FlatNet.device_arrays`); ``append``
-and ``remove`` drop the copy.  The fleet version merges the alive shards'
-FlatNets (:func:`merge_flats`) into ONE device query; results are exact
-unions, since shards partition the windows.
+The FlatNet's arrays (the member lists as CSR pairs, and envelopes) are
+uploaded to a device once per FlatNet version and kept there
+(:meth:`FlatNet.device_arrays`); ``append`` and ``remove`` drop the copy.
+The fleet version merges the alive shards' FlatNets (:func:`merge_flats`)
+into ONE device query; results are exact unions, since shards partition
+the windows.
 
 This one-shot stacked fleet query is the elastic layer's *fallback*
 serving mode (``ElasticIndex(..., fleet_mode="oneshot")``): it pays one
@@ -57,6 +64,7 @@ from repro_torch.distances import bounds
 from repro_torch.distances import np_backend
 from repro_torch.distances._wavefront import sqrt_rn, sum_last
 from repro_torch.kernels import registry as kernel_registry
+from repro_torch.kernels import ring_filter
 from repro_torch.kernels.wavefront import lev_operand
 
 
@@ -89,25 +97,34 @@ class FlatNet:
 
     def device_arrays(self, dev: torch.device) -> Dict[str, torch.Tensor]:
         """The query operands on ``dev``, uploaded once per FlatNet version
-        (``append``/``remove`` drop the copy): pivots, radii, member ids
-        (padding clamped to 0) with their validity mask and distances, the
-        window database and, when present, the envelopes.  Token ids go up
-        as the kernel takes them (int32, range-checked here), so no query
-        converts or checks them again."""
+        (``append``/``remove`` drop the copy): pivots, radii (f32), the
+        valid (pivot, member) pairs in CSR order (``mem_pivot`` and
+        ``mem_id`` int32, ``mem_dist`` f32; pivot-major, each list in its
+        stored order, so the pairs come in the order ``nonzero`` gives over
+        the padded lists), the window database and, when present, the
+        envelopes.  Token ids go up as the kernel takes them (int32,
+        range-checked here), so no query converts or checks them again."""
         if self._on_device is not None and self._on_device[0] == dev:
             return self._on_device[1]
+        if len(self.data) > np.iinfo(np.int32).max:
+            raise ValueError(f"{len(self.data)} windows: the device query "
+                             "takes window ids of int32")
         rows = _operand_of(self.dist_name)
+        pair_p, pair_m = np.nonzero(self.members >= 0)
         arrs = {"pivots": rows(self.pivots),
-                "pradius": torch.as_tensor(self.pivot_radius),
-                "members": torch.as_tensor(np.maximum(self.members, 0)),
-                "mem_valid": torch.as_tensor(self.members >= 0),
-                "mem_dist": torch.as_tensor(self.member_dist),
+                "pradius": torch.as_tensor(
+                    np.asarray(self.pivot_radius, np.float32)),
+                "mem_pivot": torch.as_tensor(pair_p.astype(np.int32)),
+                "mem_id": torch.as_tensor(
+                    self.members[pair_p, pair_m].astype(np.int32)),
+                "mem_dist": torch.as_tensor(np.asarray(
+                    self.member_dist[pair_p, pair_m], np.float32)),
                 "data": rows(self.data)}
         if self.envelopes is not None:
             arrs["env_lo"] = torch.as_tensor(self.envelopes.lo)
             arrs["env_hi"] = torch.as_tensor(self.envelopes.hi)
             arrs["env_mass"] = torch.as_tensor(self.envelopes.mass)
-        arrs = {k: v.to(dev) for k, v in arrs.items()}
+        arrs = {k: v.to(dev).contiguous() for k, v in arrs.items()}
         self._on_device = (dev, arrs)
         return arrs
 
@@ -328,101 +345,94 @@ def device_range_query(flat: FlatNet, qs: np.ndarray, eps: float, *,
     with spans.span("oneshot.upload"):
         arrs = flat.device_arrays(dev)
         qs_t = _operand_of(flat.dist_name)(np.asarray(qs)).to(dev)
-        q_lens_t = device_mod.as_tensor(np.asarray(q_lens), dev, torch.int64)
+        q_lens_t = device_mod.as_tensor(np.asarray(q_lens), dev, torch.int32)
     hits, n_need, n_evals, n_pruned, lb_rows, lb_pruned = _device_query(
-        qs_t, q_lens_t, arrs, float(eps), flat.dist_name, use_env)
+        qs_t.contiguous(), q_lens_t.contiguous(), arrs, float(eps),
+        flat.dist_name, use_env)
+    with spans.span("oneshot.fetch"):
+        with spans.span("oneshot.wait"):
+            hits = hits.cpu()
+            n_pruned = int(n_pruned)
+    P, M = flat.members.shape
     stats = {"pivot_evals": Q * flat.n_pivots,
              "member_evals": n_evals,
              "fused_pruned": n_pruned,
              "lb_rows": lb_rows,
              "lb_pruned": lb_pruned,
              "capacity": final_capacity(capacity, n_need),
-             "total_evals": Q * flat.n_pivots + n_evals}
-    with spans.span("oneshot.fetch"):
-        with spans.span("oneshot.wait"):
-            hits = hits.cpu()
-        return hits.numpy(), stats
+             "total_evals": Q * flat.n_pivots + n_evals,
+             "filter_slots": Q * arrs["mem_id"].numel(),
+             "padded_slots": Q * P * M}
+    return hits.numpy(), stats
 
 
 def _device_query(qs, q_lens, arrs, eps: float, dist_name: str,
                   use_env: bool):
     """The one-shot query on the operands' device: ``(hits (Q, N) bool
-    tensor, n_need, member_evals, fused_pruned, lb_rows, lb_pruned)``.
+    tensor, n_need, member_evals, fused_pruned (a tensor on the device, or
+    0), lb_rows, lb_pruned)``.
 
     One wavefront launch for the ``Q * P`` query-pivot rows (eps = +inf:
-    the values feed the ring bounds) and one for the survivors when there
-    are any; each compaction is one ``torch.nonzero``."""
-    pivots, pradius = arrs["pivots"], arrs["pradius"]
-    members, mem_valid = arrs["members"], arrs["mem_valid"]
-    mem_dist, data = arrs["mem_dist"], arrs["data"]
+    the values feed the ring bounds), the ring filter, and one wavefront
+    launch for the survivors when there are any.  The survivor count is
+    the one read that blocks (one more with the envelope stage)."""
+    pivots, pradius, data = arrs["pivots"], arrs["pradius"], arrs["data"]
     dev = qs.device
     Q = qs.shape[0]
-    P, M = members.shape
+    P = pivots.shape[0]
     N = data.shape[0]
     spec = kernel_registry.get(dist_name)
-    # each read that blocks on the card (a nonzero, a boolean index, a sum
-    # read back) is an ``oneshot.wait`` span inside its phase
+    # each read that blocks on the card is an ``oneshot.wait`` span inside
+    # its phase
     with spans.span("oneshot.pivots"):
         # 1. queries x pivots — value-consuming (feeds the ring bounds)
         qs_rep = qs.repeat_interleave(P, dim=0)
         pv_rep = pivots.repeat((Q,) + (1,) * (pivots.ndim - 1))
         dp = spec.device_call(qs_rep, pv_rep, lx=q_lens.repeat_interleave(P)
                               ).dist.reshape(Q, P)
-    with spans.span("oneshot.bounds"):
-        # 2. pivot verdicts
-        acc_all = dp + pradius[None, :] <= eps            # accept whole list
-        prune_all = dp - pradius[None, :] > eps
-        undecided = ~(acc_all | prune_all)
-        # 3. member ring bounds for undecided pivots
-        lo = (dp[:, :, None] - mem_dist[None, :, :]).abs()   # (Q, P, M)
-        hi = dp[:, :, None] + mem_dist[None, :, :]
-        member_live = mem_valid[None, :, :] & undecided[:, :, None]
-        accept_m = member_live & (hi <= eps)
-        need_eval = member_live & (lo <= eps) & (hi > eps)
-        del lo, hi, member_live
-        # free verdicts into the (Q, N) hit mask: an index-put of True at
-        # the accepted (q, w) pairs (duplicates are harmless)
-        hits = torch.zeros((Q, N), dtype=torch.bool, device=dev)
-        free_in = (acc_all[:, :, None] & mem_valid[None]) | accept_m
+    with spans.span("oneshot.filter"):
+        # 2.-4. pivot verdicts, ring bounds and compaction over the real
+        # (pivot, member) pairs; free verdicts go into the hit mask, and a
+        # spare byte past it takes the survivors' misses below
+        cells = torch.zeros(Q * N + 1, dtype=torch.bool, device=dev)
+        hits = cells[:Q * N].view(Q, N)
+        ring = ring_filter.ring_filter(
+            dp.contiguous(), pradius, arrs["mem_pivot"], arrs["mem_id"],
+            arrs["mem_dist"], eps, hits)
         with spans.span("oneshot.wait"):
-            qq, pp, mm = free_in.nonzero(as_tuple=True)
-        hits[qq, members[pp, mm]] = True
-        del free_in, accept_m
-    with spans.span("oneshot.compact"):
-        # 4. compact survivors (exact size: every selected row is real)
-        with spans.span("oneshot.wait"):
-            sel = need_eval.reshape(-1).nonzero().squeeze(1)
-        del need_eval
-        n_need = int(sel.numel())
-        q_of = sel // (P * M)
-        w_of = members.reshape(-1)[sel % (P * M)]
+            n_need = int(ring.n_need)
+        rows = ring_filter.survivor_rows(ring, n_need, qs, q_lens, data)
     with spans.span("oneshot.survivors"):
         lb_rows = lb_pruned = 0
-        if use_env:
+        if use_env and n_need:
             # 4b. envelope stage on the compacted survivors: gather the
             # PRECOMPUTED per-window boxes/masses (built once at flatten
             # time) and compact a second time, so only rows the envelope
             # bound cannot certify as > eps reach the exact wavefront.
             # One-direction form of the sound bounds in
             # ``distances/bounds.py::lb_envelope_rows``.
-            lb = _envelope_rows(dist_name, qs[q_of], q_lens[q_of],
+            w_of = rows.w_of
+            lb = _envelope_rows(dist_name, rows.xs, rows.q_len,
                                 arrs["env_lo"][w_of], arrs["env_hi"][w_of],
                                 arrs["env_mass"][w_of])
             with spans.span("oneshot.wait"):
                 keep = (lb <= eps).nonzero().squeeze(1)
             lb_rows = n_need
             lb_pruned = n_need - int(keep.numel())
-            q_of, w_of = q_of[keep], w_of[keep]
-        n_evals = int(q_of.numel())
+            rows = ring_filter.Rows(*(t[keep] for t in rows))
+        n_evals = int(rows.q_of.numel())
         n_pruned = 0
         if n_evals:
-            # and evaluate — fused ε: the kernel returns the hit mask
-            out = spec.device_call(qs[q_of], data[w_of], lx=q_lens[q_of],
-                                   eps=eps)
-            with spans.span("oneshot.wait"):
-                hits[q_of[out.hit], w_of[out.hit]] = True
-            with spans.span("oneshot.wait"):
-                n_pruned = int(out.pruned.sum())
+            # and evaluate — fused ε: the kernel returns the hit mask, set
+            # in by one scatter of True (a miss writes the spare byte).
+            # Nothing waits for the card here: ε is filled on the card, as
+            # a copy of a host scalar would wait for the stream
+            out = spec.device_call(
+                rows.xs, rows.ys, lx=rows.q_len,
+                eps=torch.full((n_evals,), eps, device=dev))
+            cells.index_fill_(0, torch.where(
+                out.hit, rows.q_of * N + rows.w_of, Q * N), True)
+            n_pruned = out.pruned.sum()
     return hits, n_need, n_evals, n_pruned, lb_rows, lb_pruned
 
 
@@ -564,7 +574,9 @@ def fleet_range_query(flats: List[FlatNet], qs: np.ndarray, eps: float,
                  "fleet_fused_pruned": s.get("fused_pruned", 0),
                  "fleet_lb_rows": s.get("lb_rows", 0),
                  "fleet_lb_pruned": s.get("lb_pruned", 0),
-                 "fleet_total_evals": s["total_evals"]}
+                 "fleet_total_evals": s["total_evals"],
+                 "fleet_filter_slots": s["filter_slots"],
+                 "fleet_padded_slots": s["padded_slots"]}
         for (i, f), off in zip(alive, offsets):
             results[i] = hits[:, off:off + len(f.data)]
             stats[i] = dict(fleet)

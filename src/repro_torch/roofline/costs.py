@@ -15,9 +15,10 @@ counted on one rank by :func:`count_collectives`: the matrix-product flops
 of the rank's local products and the operand bytes of its collectives, by
 kind (the reference's ``hlo_costs`` layout).
 
-The two kernels' costs are models of the work their function needs,
-whatever implements it (:func:`wavefront_cost`, :func:`pairwise_l2_cost`,
-and :func:`kernel_cost_report` over a kernel's own arguments); a decode
+The hand-written kernels' costs are models of the work their function
+needs, whatever implements it (:func:`wavefront_cost`,
+:func:`pairwise_l2_cost`, :func:`ring_filter_cost`, and
+:func:`kernel_cost_report` over a kernel's own arguments); a decode
 step's least bytes are :func:`decode_step_bytes`.  A bound is the larger of
 the bytes over the HBM rate and the operations over the peak of their
 type.
@@ -148,10 +149,38 @@ def pairwise_l2_cost(M: int, N: int, d: int) -> Dict:
             "f32_bound_ms": f32}
 
 
+def ring_filter_cost(Q: int, P: int, nv: int, N: int, x_row: int,
+                     y_row: int, n_need: int) -> Dict:
+    """Cost of the one-shot query's ring filter (both passes) over ``Q``
+    queries, ``P`` pivots and ``nv`` (pivot, member) pairs into ``N``
+    windows, with ``n_need`` survivors and operand rows of ``x_row`` /
+    ``y_row`` bytes: ``{ops, bytes, bound_ms, bound_by}``.
+
+    Operations: five f32 adds, subtractions or absolute values a (query,
+    pair) slot (``dp +- pradius``, ``dp +- mdist``, ``|.|``), compares not
+    counted.  Bytes, each read or written once: the pairs (int32 pivot,
+    int32 id, f32 distance), the radii, ``dp``, the query rows and their
+    int32 lengths, at most ``min(N, n_need)`` distinct window rows; written,
+    each survivor's int64 ``q_of`` and ``w_of``, int32 length and its two
+    operand rows.  The free accepts' bytes in the hit mask are left out
+    (their number is not an input)."""
+    ops = 5 * Q * nv
+    nbytes = (12 * nv + 4 * P + 4 * Q * P + Q * (x_row + 4)
+              + min(N, n_need) * y_row + n_need * (20 + x_row + y_row))
+    t_bytes = bytes_ms(nbytes)
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    by_bytes = t_bytes >= t_ops
+    return {"ops": ops, "bytes": float(nbytes),
+            "bound_ms": t_bytes if by_bytes else t_ops,
+            "bound_by": "bytes" if by_bytes else "operations"}
+
+
 def kernel_cost_report(name: str, *args, **kwargs) -> Dict:
     """The roofline inputs of one call of a hand-written kernel, from the
     arguments its wrapper takes: ``wavefront`` ``(xs, ys, lens, eps,
-    mode=)`` (``lens`` ``(B, 2)``), ``pairwise_l2`` ``(x, y)``.  Returns
+    mode=)`` (``lens`` ``(B, 2)``), ``pairwise_l2`` ``(x, y)``,
+    ``ring_filter`` ``(dp, ids, qs, data, n_need=)`` (pass 1's ``dp`` and
+    pair ids, pass 2's rows and survivor count).  Returns
     the cost model's dict (``ops`` or ``flops``, ``bytes``, ``bound_ms``,
     ``bound_by`` and the earlier or f32 bound) with ``intensity``, the
     operations per byte."""
@@ -165,6 +194,13 @@ def kernel_cost_report(name: str, *args, **kwargs) -> Dict:
         x, y = args
         rep = pairwise_l2_cost(x.shape[0], y.shape[0], x.shape[1])
         work = rep["flops"]
+    elif name == "ring_filter":
+        dp, ids, qs, data = args
+        rep = ring_filter_cost(
+            dp.shape[0], dp.shape[1], _numel(ids), data.shape[0],
+            qs[0].numel() * qs.element_size(),
+            data[0].numel() * data.element_size(), int(kwargs["n_need"]))
+        work = rep["ops"]
     else:
         raise KeyError(f"no cost model for kernel {name!r}")
     return {**rep, "intensity": work / rep["bytes"]}

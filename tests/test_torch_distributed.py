@@ -27,6 +27,10 @@ from repro_torch.core.refnet import ReferenceNet  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     protein_sequences, proteins, trajectories)
 from repro_torch.distances import get  # noqa: E402
+from repro_torch.kernels import registry as port_registry  # noqa: E402
+from repro_torch.kernels import ring_filter  # noqa: E402
+
+import ring_cases  # noqa: E402
 
 GEN = {"levenshtein": proteins, "erp": trajectories}
 
@@ -60,6 +64,21 @@ def flats():
         out[name] = (data, dist_mod.flatten_net(port),
                      ref_dist.flatten_net(refn), port, refn)
     return out
+
+
+#: the stats keys the port adds to the reference's: the slots the ring
+#: filter visited and those of the padded broadcast it replaced
+SLOT_KEYS = ("filter_slots", "padded_slots")
+
+
+def _assert_stats(got, want, flat, Q, prefix=""):
+    """Every key of the reference's stats equal, and the port's two slot
+    counters exact: ``Q`` times the valid pairs, ``Q * P * M``."""
+    assert {k: got[k] for k in want} == want
+    assert set(got) == set(want) | {prefix + k for k in SLOT_KEYS}
+    P, M = flat.members.shape
+    assert got[prefix + "filter_slots"] == Q * int((flat.members >= 0).sum())
+    assert got[prefix + "padded_slots"] == Q * P * M
 
 
 def _assert_flat_equal(got, want, rtol):
@@ -112,7 +131,7 @@ def test_device_range_query_matches_reference(flats, name, eps, lb, ragged):
     want_hits, want_stats = ref_dist.device_range_query(
         ref_flat, qs, eps, q_lens=q_lens, lb_cascade=lb)
     np.testing.assert_array_equal(hits, np.asarray(want_hits))
-    assert stats == want_stats
+    _assert_stats(stats, want_stats, got_flat, len(qs))
     if not ragged:
         np.testing.assert_array_equal(
             hits, dist_mod.host_reference_hits(got_flat, qs, eps))
@@ -129,7 +148,7 @@ def test_forced_overflow_reports_the_reference_capacity(flats):
     want_hits, want_stats = ref_dist.device_range_query(ref_flat, qs, 6.0,
                                                         capacity=8)
     np.testing.assert_array_equal(hits, np.asarray(want_hits))
-    assert stats == want_stats
+    _assert_stats(stats, want_stats, got_flat, len(qs))
     assert stats["capacity"] > 8 and stats["member_evals"] > 8
     assert dist_mod.final_capacity(8, 9) == 16
     assert dist_mod.final_capacity(8, 8) == 8
@@ -153,7 +172,7 @@ def test_survivor_zero_is_a_real_row():
                                               capacity=16, device="cpu")
     want_hits, want_stats = ref_dist.device_range_query(
         _toy_flat(ref_dist), qs, 2.5, capacity=16)
-    assert stats == want_stats
+    _assert_stats(stats, want_stats, _toy_flat(dist_mod), len(qs))
     assert stats["member_evals"] == 2
     np.testing.assert_array_equal(hits, [[False, False, True]])
     np.testing.assert_array_equal(hits, np.asarray(want_hits))
@@ -183,7 +202,15 @@ def test_merge_flats_and_fleet_range_query_match_reference(stacked):
             got_flats, qs, 2.0, dead=dead, stacked=stacked, device="cpu")
         want, wst = ref_dist.fleet_range_query(
             ref_flats, qs, 2.0, dead=dead, stacked=stacked)
-        assert gst == wst
+        alive = [f for i, f in enumerate(got_flats) if i not in dead]
+        merged = dist_mod.merge_flats(alive)[0]
+        for i, (g, w) in enumerate(zip(gst, wst)):
+            if w is None:
+                assert g is None
+            elif w.get("merged"):
+                _assert_stats(g, w, merged, len(qs), prefix="fleet_")
+            else:
+                _assert_stats(g, w, got_flats[i], len(qs))
         for g, w in zip(got, want):
             assert (g is None) == (w is None)
             if g is not None:
@@ -222,7 +249,7 @@ def test_flatnet_append_and_remove_match_reference_and_refresh_device():
     hits, st = dist_mod.device_range_query(got, qs, 2.0, device="cpu")
     want_hits, want_st = ref_dist.device_range_query(want, qs, 2.0)
     np.testing.assert_array_equal(hits, np.asarray(want_hits))
-    assert st == want_st
+    _assert_stats(st, want_st, got, len(qs))
     assert not hits[:, gone].any()
 
 
@@ -247,3 +274,196 @@ def test_batch_dist_shim_warns_and_delegates():
         warnings.simplefilter("ignore", DeprecationWarning)
         want = ref_dist._batch_dist("levenshtein", xs, xs[::-1])
     np.testing.assert_array_equal(d.numpy(), np.asarray(want))
+
+
+def _port_flat(name, data, eps_prime=1.0):
+    """A port-only flat net (no reference build)."""
+    return dist_mod.flatten_net(ReferenceNet(
+        get(name), data, eps_prime=eps_prime, tight_bounds=True,
+        counter=CountedDistance(get(name), data, device="cpu")).build())
+
+
+@pytest.mark.parametrize("change", ["merged", "appended", "removed"])
+def test_device_arrays_hold_the_valid_pairs_in_order(change):
+    """The CSR pairs ``device_arrays`` uploads are the padded lists' valid
+    entries, pivot-major and each list in its stored order, also after an
+    ``append`` (new ids at the end of their lists) and a ``remove`` (the
+    ids gone, the lists recompacted)."""
+    data = proteins(200, seed=11)
+    parts = np.array_split(np.arange(180), 3)
+    flat = dist_mod.merge_flats([_port_flat("levenshtein", data[ids])
+                                 for ids in parts])[0]
+    flat.device_arrays(torch.device("cpu"))
+    new = np.arange(180, 200)
+    gone = [3, 77, 150, 151]
+    if change == "appended":
+        rows = [int(k) % flat.n_pivots for k in range(len(new))]
+        flat.append(rows, new, np.linspace(0.0, 5.0, len(new)),
+                    new_data=data[180:])
+    elif change == "removed":
+        flat.remove(gone)
+    assert (flat._on_device is None) == (change != "merged")
+    arrs = flat.device_arrays(torch.device("cpu"))
+    pv, ids, md = ring_cases.csr(flat.members, flat.member_dist)
+    assert arrs["mem_pivot"].dtype == arrs["mem_id"].dtype == torch.int32
+    assert arrs["mem_dist"].dtype == arrs["pradius"].dtype == torch.float32
+    np.testing.assert_array_equal(arrs["mem_pivot"].numpy(), pv)
+    np.testing.assert_array_equal(arrs["mem_id"].numpy(), ids)
+    np.testing.assert_array_equal(arrs["mem_dist"].numpy(), md)
+    got = set(arrs["mem_id"].tolist())
+    assert len(got) == len(ids) == len(flat.data) - len(gone) * (
+        change == "removed")
+    if change == "appended":
+        assert set(new.tolist()) <= got
+    if change == "removed":
+        assert not got & set(gone)
+
+
+@pytest.mark.parametrize("name", ring_cases.CASES)
+def test_ring_filter_equals_the_padded_broadcast(name):
+    """The plain ring filter over the CSR pairs gives the padded (Q, P, M)
+    broadcast's hit mask and its survivors in ``nonzero``'s order, with
+    their rows; ``ties`` puts ``eps`` exactly on each of the four
+    bounds."""
+    dp, pr, members, md, eps = ring_cases.case(name)
+    Q, N = len(dp), 300
+    t = torch.as_tensor
+    want_hits, want_q, want_w = ring_cases.padded(t(dp), t(pr), t(members),
+                                                  t(md), eps, N)
+    pv, ids, mdist = ring_cases.csr(members, md)
+    hits = torch.zeros((Q, N), dtype=torch.bool)
+    v = ring_filter.ring_filter(t(dp), t(pr), t(pv), t(ids), t(mdist), eps,
+                                hits)
+    n = int(v.n_need)
+    rng = np.random.default_rng(1)
+    qs = t(rng.normal(size=(Q, 5, 2)).astype(np.float32))
+    q_lens = t((np.arange(Q) % 5 + 1).astype(np.int32))
+    data = torch.arange(N * 5, dtype=torch.int32).reshape(N, 5)
+    rows = ring_filter.survivor_rows(v, n, qs, q_lens, data)
+    assert torch.equal(hits, want_hits)
+    assert n == len(want_q) == len(rows.q_of)
+    assert torch.equal(rows.q_of, want_q) and torch.equal(rows.w_of, want_w)
+    assert torch.equal(rows.q_len, q_lens[want_q])
+    assert torch.equal(rows.xs, qs[want_q])
+    assert torch.equal(rows.ys, data[want_w])
+    if name == "none":
+        assert n == 0 and not hits.any()
+    if name == "all":
+        assert n == Q * len(ids) and not hits.any()
+    if name in ("random", "ties"):
+        assert 0 < n < Q * len(ids) and hits.any()
+    if name == "ties":
+        at = ring_cases.boundary_slots(dp, pr, members, md, eps)
+        assert min(at.values()) > 0, at
+
+
+def _queries_of(name, data, Q, rng):
+    qs = data[rng.integers(0, len(data), Q)].copy()
+    if qs.dtype.kind in "iu":
+        flips = rng.random(qs.shape) < 0.1
+        qs[flips] = rng.integers(0, int(data.max()) + 1, flips.sum())
+    else:
+        qs += rng.normal(scale=0.1, size=qs.shape).astype(qs.dtype)
+    return qs
+
+
+@pytest.mark.parametrize("name", ["dtw", "erp", "frechet", "levenshtein",
+                                  "euclidean", "hamming"])
+def test_device_range_query_every_distance(name):
+    """The one-shot query through the plain ring filter, for every
+    distance: hits and every stats key of the reference's query over the
+    same flat net (``capacity`` 16 forces its doubling), and, for the
+    metrics, the brute-force oracle's hits.  DTW is no metric, so its net
+    is Frechet's, relinked with DTW's pivot-member distances."""
+    gen = proteins if name in ("levenshtein", "hamming") else trajectories
+    data = gen(80, seed=4)
+    flat = _port_flat("frechet" if name == "dtw" else name, data)
+    if name == "dtw":
+        valid = flat.members >= 0
+        pp, mm = np.nonzero(valid)
+        ds = port_registry.get("dtw").batch(
+            data[flat.pivot_ids[pp]], data[flat.members[pp, mm]],
+            device="cpu").dist.numpy()
+        md = np.zeros_like(flat.member_dist)
+        md[pp, mm] = ds
+        flat = dist_mod.FlatNet(
+            pivots=flat.pivots, pivot_radius=np.where(
+                valid, md, 0.0).max(axis=1).astype(np.float32),
+            members=flat.members, member_dist=md, data=flat.data,
+            n_pivots=flat.n_pivots, dist_name="dtw",
+            pivot_ids=flat.pivot_ids)
+    rng = np.random.default_rng(2)
+    qs = _queries_of(name, data, 5, rng)
+    brute = dist_mod.host_reference_hits(flat, qs, np.inf)
+    assert brute.all()
+    ds = np.sort(np.asarray(port_registry.get(name).batch(
+        np.repeat(qs, len(data), axis=0), np.tile(data, (5,) + (1,) * (
+            data.ndim - 1)), device="cpu").dist))
+    eps = float(ds[len(ds) // 20])      # about 5 % of the pairs hit
+    hits, stats = dist_mod.device_range_query(flat, qs, eps, capacity=16,
+                                              device="cpu")
+    want_flat = ref_dist.FlatNet(
+        pivots=flat.pivots, pivot_radius=flat.pivot_radius,
+        members=flat.members, member_dist=flat.member_dist, data=flat.data,
+        n_pivots=flat.n_pivots, dist_name=name, pivot_ids=flat.pivot_ids)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want_hits, want_stats = ref_dist.device_range_query(
+            want_flat, qs, eps, capacity=16)
+    np.testing.assert_array_equal(hits, np.asarray(want_hits))
+    _assert_stats(stats, want_stats, flat, len(qs))
+    assert stats["capacity"] > 16 and stats["member_evals"] > 16
+    if name != "dtw":
+        np.testing.assert_array_equal(
+            hits, dist_mod.host_reference_hits(flat, qs, eps))
+    assert hits.any()
+
+
+@pytest.mark.parametrize("frac", ring_cases.FRACTIONS)
+@pytest.mark.parametrize("bound", ["dp+mdist", "|dp-mdist|"])
+@pytest.mark.parametrize("name", ["levenshtein", "erp"])
+def test_eps_no_f32_holds(flats, name, bound, frac):
+    """``eps`` an f64 between two f32 values, beside a real pair's
+    ``dp + mdist`` or ``|dp - mdist|`` in a list with no whole-list
+    verdict: the plain filter rounds ``eps`` to the nearest f32, as the
+    reference's comparison does, so hits and every stats key equal the
+    reference's over the same flat net, and the pair's verdict after pass
+    1 is the f32 one."""
+    data, flat, _, _, _ = flats[name]
+    rng = np.random.default_rng(12)
+    qs = _queries_of(name, data, 6, rng)
+    arrs = flat.device_arrays(torch.device("cpu"))
+    P = flat.n_pivots
+    qs_t = dist_mod._operand_of(name)(qs).contiguous()
+    q_lens = torch.full((len(qs),), qs.shape[1], dtype=torch.int32)
+    piv = arrs["pivots"]
+    dp = port_registry.get(name).device_call(
+        qs_t.repeat_interleave(P, dim=0),
+        piv.repeat((len(qs),) + (1,) * (piv.ndim - 1)),
+        lx=q_lens.repeat_interleave(P)).dist.reshape(len(qs), P)
+    pv, ids, md = (arrs[k].numpy() for k in ("mem_pivot", "mem_id",
+                                             "mem_dist"))
+    q, j, hi, lo = ring_cases.undecided_pair(
+        dp.numpy(), flat.pivot_radius, pv, md, rng)
+    at = hi if bound == "dp+mdist" else lo
+    eps = ring_cases.between(at, frac)
+    hits1 = torch.zeros((len(qs), len(flat.data)), dtype=torch.bool)
+    v = ring_filter.ring_filter(dp.contiguous(), arrs["pradius"],
+                                arrs["mem_pivot"], arrs["mem_id"],
+                                arrs["mem_dist"], eps, hits1)
+    e32 = np.float32(eps)
+    slot = q * len(ids) + j
+    if hi <= e32:                           # accepted free in f32
+        assert hits1[q, ids[j]]
+    assert bool((v.order == slot).any()) == bool(lo <= e32 < hi)
+    hits, stats = dist_mod.device_range_query(flat, qs, eps, device="cpu")
+    want_flat = ref_dist.FlatNet(
+        pivots=flat.pivots, pivot_radius=flat.pivot_radius,
+        members=flat.members, member_dist=flat.member_dist, data=flat.data,
+        n_pivots=flat.n_pivots, dist_name=name, pivot_ids=flat.pivot_ids)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want_hits, want_stats = ref_dist.device_range_query(want_flat, qs,
+                                                            eps)
+    np.testing.assert_array_equal(hits, np.asarray(want_hits))
+    _assert_stats(stats, want_stats, flat, len(qs))

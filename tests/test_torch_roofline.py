@@ -98,6 +98,27 @@ def test_pairwise_l2_cost_at_8192_squared():
         costs.kernel_cost_report("conv", None)
 
 
+@pytest.mark.parametrize("n_need", [0, 7, 100])
+def test_ring_filter_cost_hand_counted(n_need):
+    """3 queries, 2 pivots, 5 pairs into 10 windows of 6 int32 tokens,
+    query rows of 4 int32 tokens: 15 slots of 5 operations; read 5 x 12
+    pair bytes, 2 x 4 radii, 3 x 2 x 4 of dp, 3 x (16 + 4) query bytes and
+    min(10, n_need) window rows of 24 bytes; written n_need x (8 + 8 + 4
+    + 16 + 24)."""
+    rep = costs.ring_filter_cost(3, 2, 5, 10, 16, 24, n_need)
+    nbytes = 60 + 8 + 24 + 60 + min(10, n_need) * 24 + n_need * 60
+    assert rep["ops"] == 75
+    assert rep["bytes"] == nbytes
+    assert rep["bound_by"] == "bytes"
+    assert rep["bound_ms"] == nbytes / costs.PEAK_BYTES * 1e3
+    kr = costs.kernel_cost_report(
+        "ring_filter", torch.empty(3, 2), torch.empty(5, dtype=torch.int32),
+        torch.empty(3, 4, dtype=torch.int32),
+        torch.empty(10, 6, dtype=torch.int32), n_need=n_need)
+    assert {k: kr[k] for k in rep} == rep
+    assert kr["intensity"] == 75 / nbytes
+
+
 def test_peaks():
     assert costs.peak_flops(torch.bfloat16) == 989e12
     assert costs.peak_flops(torch.float32) == 67e12

@@ -22,9 +22,8 @@ WORKERS = ["w0", "w1", "w2", "w3"]
 #: the spans of one one-shot batch whose survivors reach the kernel, in
 #: start order (collector pauses aside)
 ONESHOT = ["retriever.range", "fleet.oneshot", "oneshot.upload",
-           "oneshot.pivots", "oneshot.bounds", "oneshot.wait",
-           "oneshot.compact", "oneshot.wait", "oneshot.survivors",
-           "oneshot.wait", "oneshot.wait", "oneshot.fetch", "oneshot.wait",
+           "oneshot.pivots", "oneshot.filter", "oneshot.wait",
+           "oneshot.survivors", "oneshot.fetch", "oneshot.wait",
            "fleet.map_hits"]
 
 
@@ -277,9 +276,7 @@ def test_oneshot_batch_spans(dist, eps):
                 assert parent[slot_of[n]] == slot_of["fleet.oneshot"], n
         waits = [s for n, s in zip(names, slots) if n == "oneshot.wait"]
         under = [recs.name[recs.rows(parent[s])] for s in waits]
-        assert under == ["oneshot.bounds", "oneshot.compact",
-                         "oneshot.survivors", "oneshot.survivors",
-                         "oneshot.fetch"]
+        assert under == ["oneshot.filter", "oneshot.fetch"]
     assert recs.rid[order[0]] != recs.rid[order[len(ONESHOT)]]
 
 
