@@ -807,6 +807,12 @@ def time_ms(torch, fn, min_ms=50.0, max_iters=200) -> float:
     return a.elapsed_time(b) / iters
 
 
+#: wavefront rows a batch of perfbench's traj-dfd-l64.batch: 64 queries
+#: times its 2,491 evaluations a query (10,000 windows, its traced run on
+#: an H100), all on the kernel's block schedule
+DFD_L64_ROWS = 64 * 2491
+
+
 def phase_timing(torch, wf, rng, dev, sizes) -> list:
     """Both kernels' bounds come from ``repro_torch.roofline.costs``: the
     operations and bytes the function needs at the timed shapes."""
@@ -831,7 +837,9 @@ def phase_timing(torch, wf, rng, dev, sizes) -> list:
               ("erp", 1 << 16, (20, 20), (20, 20), 8,
                "65,536 rows, d = 8 (numpy's eight running sums)"),
               ("erp", 1 << 14, (20, 20), (20, 20), 60,
-               "16,384 rows, d = 60")]
+               "16,384 rows, d = 60"),
+              ("dfd", DFD_L64_ROWS, (64, 64), (64, 64), 2,
+               "traj-dfd-l64.batch's rows a batch (block schedule)")]
     rows_out = []
     for mode, B, lxr, lyr, d, what in shapes:
         xs, ys, lx, ly = make_rows(rng, mode, B, lxr, lyr, d)
@@ -3879,6 +3887,7 @@ def main(argv=None) -> int:
                              "tooling": tooling["launches"]["wavefront"],
                              "sharded": sharded["launches"]["wavefront"],
                              "examples": examples["launches"]["wavefront"]},
+        "schedule_rows": dict(wf.SCHEDULE_ROWS),
         "max_abs_err": max_err, "max_abs_err_numpy": numpy_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -50,11 +50,12 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.distances._wavefront import cumsum_seq, sqrt_rn, sum_last
 from repro_torch.kernels import build
 
@@ -67,7 +68,12 @@ MODE_IDS = {"dtw": 0, "erp": 1, "dfd": 2, "lev": 3}
 #: counted under :data:`_LAUNCH_LOCK`, since a serving thread and a
 #: resharding thread launch at once)
 LAUNCHES = 0
+#: rows launched by :func:`wavefront_cuda` per schedule (:func:`schedule`),
+#: counted with :data:`LAUNCHES`
+SCHEDULE_ROWS = {"rows": 0, "block": 0}
 _LAUNCH_LOCK = threading.Lock()
+
+_SCHEDULES: Dict[Tuple[str, int, int, int], str] = {}
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -274,6 +280,18 @@ def smem_bytes(mode: str, Lx: int, Ly: int, d: int) -> Tuple[int, int]:
     return nbytes, rows.value
 
 
+def schedule(mode: str, Lx: int, Ly: int, d: int) -> str:
+    """``"rows"`` (one thread a row) or ``"block"`` (one block a row): the
+    launcher's choice for a dispatch of widths ``Lx``, ``Ly`` and ``d``,
+    from :func:`smem_bytes`'s rows per block; cached per shape."""
+    key = (mode, Lx, Ly, d)
+    got = _SCHEDULES.get(key)
+    if got is None:
+        got = _SCHEDULES[key] = ("rows" if smem_bytes(mode, Lx, Ly, d)[1]
+                                 else "block")
+    return got
+
+
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
            device: torch.device) -> None:
     if t.device != device:
@@ -316,22 +334,26 @@ def wavefront_cuda(xs, ys, lens, eps, *, mode: str) -> Out:
         yshape = (B, Ly, d)
     if Lx < 1 or Ly < 1 or B < 1 or d < 1:
         raise ValueError(f"bad dispatch shape B={B} Lx={Lx} Ly={Ly} d={d}")
-    operand = torch.int32 if mode == "lev" else torch.float32
-    _check("xs", xs, tuple(xs.shape), operand, dev)
-    _check("ys", ys, yshape, operand, dev)
-    _check("lens", lens, (B, 2), torch.int32, dev)
-    _check("eps", eps, (B,), torch.float32, dev)
-    dist = torch.empty(B, dtype=torch.float32, device=dev)
-    hit = torch.empty(B, dtype=torch.bool, device=dev)
-    pruned = torch.empty(B, dtype=torch.bool, device=dev)
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.wavefront_launch(
-        MODE_IDS[mode], xs.data_ptr(), ys.data_ptr(), lens.data_ptr(),
-        eps.data_ptr(), dist.data_ptr(), hit.data_ptr(), pruned.data_ptr(),
-        B, Lx, Ly, d,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        stream)
+    sched = schedule(mode, Lx, Ly, d)
+    # the block schedule's host work is a span of its own; the row
+    # schedule's opens none
+    with spans.span("wavefront.block") if sched == "block" else spans.NOOP:
+        operand = torch.int32 if mode == "lev" else torch.float32
+        _check("xs", xs, tuple(xs.shape), operand, dev)
+        _check("ys", ys, yshape, operand, dev)
+        _check("lens", lens, (B, 2), torch.int32, dev)
+        _check("eps", eps, (B,), torch.float32, dev)
+        dist = torch.empty(B, dtype=torch.float32, device=dev)
+        hit = torch.empty(B, dtype=torch.bool, device=dev)
+        pruned = torch.empty(B, dtype=torch.bool, device=dev)
+        lib = _library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wavefront_launch(
+            MODE_IDS[mode], xs.data_ptr(), ys.data_ptr(), lens.data_ptr(),
+            eps.data_ptr(), dist.data_ptr(), hit.data_ptr(),
+            pruned.data_ptr(), B, Lx, Ly, d,
+            dev.index if dev.index is not None
+            else torch.cuda.current_device(), stream)
     if rc != 0:
         msg = lib.wavefront_error_string(rc).decode()
         raise RuntimeError(
@@ -339,4 +361,5 @@ def wavefront_cuda(xs, ys, lens, eps, *, mode: str) -> Out:
             f"B={B} Lx={Lx} Ly={Ly} d={d}")
     with _LAUNCH_LOCK:
         LAUNCHES += 1
+        SCHEDULE_ROWS[sched] += B
     return dist, hit, pruned
