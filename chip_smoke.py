@@ -227,6 +227,7 @@ def phase_build(build) -> dict:
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(build.load, KERNEL_SOURCES))  # one nvcc each, at once
     wall = time.perf_counter() - t0
+    ptxas = {}  # short kernel name -> registers, shared memory, spills
     for name in KERNEL_SOURCES:
         info = build.BUILDS[name]
         log("build", library=info.path.name, built=info.built,
@@ -239,13 +240,14 @@ def phase_build(build) -> dict:
             elif "spill stores" in ln:
                 spill = ln.strip()
             elif "Used" in ln and entry:
-                print(f"[build] ptxas {entry}: {ln.split(':', 1)[1].strip()};"
-                      f" {spill}", flush=True)
+                used = ln.split(':', 1)[1].strip()
+                ptxas[entry] = f"{used}; {spill}"
+                print(f"[build] ptxas {entry}: {used}; {spill}", flush=True)
             elif "C7514" in ln:
                 print(f"[build] ptxas warning (wgmma serialized): "
                       f"{kernel_name(ln)}", flush=True)
     log("build-done", s=f"{wall:.2f}")
-    return {"seconds": wall}
+    return {"seconds": wall, "ptxas": ptxas}
 
 
 # -- kernel operands ----------------------------------------------------------
@@ -319,6 +321,22 @@ def compare(wf, mode, ops, eps):
     return float((gd - wd).abs().max()), got
 
 
+def compare_mix(wf, mode, ops):
+    """:func:`compare` at +inf, then at an ε mix: +inf rows, finite rows,
+    rows whose ε IS their distance.  (largest |kernel - plain|, the +inf
+    outputs, the mix's outputs)."""
+    import torch
+    B = ops[0].shape[0]
+    inf = torch.full((B,), float("inf"), device=ops[0].device)
+    err, exact = compare(wf, mode, ops, inf)
+    dist = exact[0]
+    eps = torch.quantile(dist, 0.4).expand(B).clone()
+    eps[0::3] = float("inf")
+    eps[1::3] = dist[1::3]
+    err2, got = compare(wf, mode, ops, eps)
+    return max(err, err2), exact, got
+
+
 def phase_kernel_parity(torch, wf, rng, dev) -> float:
     import numpy as np
     t0 = time.perf_counter()
@@ -336,7 +354,7 @@ def phase_kernel_parity(torch, wf, rng, dev) -> float:
     cases.append(("erp", 16, (40, 48), (40, 48), 1, 1e25, True))
     cases.append(("dtw", 16, (24, 32), (24, 32), 1, 3e24, True))
     # seeded non-zero content past the lengths: the padding cells' costs
-    # feed the certificate, one schedule each (one thread or one block a row)
+    # feed the certificate, one schedule each (one thread or one warp a row)
     for mode in ("dtw", "erp", "dfd", "lev"):
         d = 1 if mode == "lev" else 2
         cases.append((mode, 300, (5, 22), (18, 20), d, 1.0, False))
@@ -353,21 +371,18 @@ def phase_kernel_parity(torch, wf, rng, dev) -> float:
             xs, ys, lx, ly = make_rows(rng, mode, B, lxr, lyr, d,
                                        zero_pad=zero_pad)
         ops = operands(mode, xs, ys, lx, ly, dev)
-        inf = torch.full((B,), float("inf"), device=dev)
-        err, exact = compare(wf, mode, ops, inf)
-        worst = max(worst, err)
-        # eps mix: +inf rows, finite rows, rows whose eps IS their distance
-        dist = exact[0]
-        eps = torch.quantile(dist, 0.4).expand(B).clone()
-        eps[0::3] = float("inf")
-        eps[1::3] = dist[1::3]
-        err, got = compare(wf, mode, ops, eps)
+        err, exact, got = compare_mix(wf, mode, ops)
         worst = max(worst, err)
         if not zero_pad:
             pruned_pad += int(got[2].sum())
         if scale > 1.0 and not bool((exact[0] >= 3e37).all()):
             raise AssertionError(f"{mode}: overflow rows did not saturate")
+    root_bad = wf.root_mismatches(dev)  # every non-negative f32
+    if root_bad:
+        raise AssertionError(f"block schedule root differs from sqrtf on "
+                             f"{root_bad} inputs")
     log("kernel-vs-plain", cases=len(cases), nonzero_padding_cases=8,
+        root_mismatches=root_bad,
         pruned_rows_there=pruned_pad, max_abs_err=worst,
         tol=f"lev bit-equal; float rtol=atol={RTOL}; hit/pruned equal",
         s=f"{time.perf_counter() - t0:.2f}")
@@ -809,13 +824,15 @@ def time_ms(torch, fn, min_ms=50.0, max_iters=200) -> float:
 
 #: wavefront rows a batch of perfbench's traj-dfd-l64.batch: 64 queries
 #: times its 2,491 evaluations a query (10,000 windows, its traced run on
-#: an H100), all on the kernel's block schedule
+#: an H100), all on the kernel's block schedule (one warp a row)
 DFD_L64_ROWS = 64 * 2491
 
 
 def phase_timing(torch, wf, rng, dev, sizes) -> list:
     """Both kernels' bounds come from ``repro_torch.roofline.costs``: the
-    operations and bytes the function needs at the timed shapes."""
+    operations and bytes the function needs at the timed shapes.  At each
+    timed shape the kernel's outputs are held to the plain version's at
+    +inf and at an ε mix (:func:`compare_mix`, which raises)."""
     import numpy as np
     from repro_torch.roofline import costs
     t0 = time.perf_counter()
@@ -839,7 +856,9 @@ def phase_timing(torch, wf, rng, dev, sizes) -> list:
               ("erp", 1 << 14, (20, 20), (20, 20), 60,
                "16,384 rows, d = 60"),
               ("dfd", DFD_L64_ROWS, (64, 64), (64, 64), 2,
-               "traj-dfd-l64.batch's rows a batch (block schedule)")]
+               "traj-dfd-l64.batch's rows a batch (block schedule)"),
+              ("erp", 2, (1100, 1100), (1000, 1000), 2,
+               "few long rows (block schedule, one warp each)")]
     rows_out = []
     for mode, B, lxr, lyr, d, what in shapes:
         xs, ys, lx, ly = make_rows(rng, mode, B, lxr, lyr, d)
@@ -848,6 +867,7 @@ def phase_timing(torch, wf, rng, dev, sizes) -> list:
         ms = time_ms(torch, lambda: wf.wavefront_cuda(*ops, eps, mode=mode))
         plain = time_ms(torch, lambda: wf.wavefront_torch(
             *ops, eps, mode=mode), min_ms=500.0, max_iters=20)
+        err = compare_mix(wf, mode, ops)[0]  # raises on a mismatch
         cost = costs.kernel_cost_report("wavefront", *ops, eps, mode=mode)
         b_ms, by, old = (cost["bound_ms"], cost["bound_by"],
                          cost["old_bound_ms"])
@@ -857,9 +877,11 @@ def phase_timing(torch, wf, rng, dev, sizes) -> list:
             shape=f"{xs.shape[1]}x{ys.shape[1]}x{d}", what=repr(what),
             ms=f"{ms:.4f}", plain_ms=f"{plain:.3f}", bound_ms=f"{b_ms:.4f}",
             bound_by=by, share=f"{b_ms / ms:.3f}",
-            old_bound_ms=f"{old:.4f}", old_share=f"{old / ms:.3f}")
+            old_bound_ms=f"{old:.4f}", old_share=f"{old / ms:.3f}",
+            max_abs_err=err)
         rows_out.append(dict(mode=mode, rows=B, ms=ms, plain_ms=plain,
-                             bound_ms=b_ms, bound_by=by, old_bound_ms=old))
+                             bound_ms=b_ms, bound_by=by, old_bound_ms=old,
+                             max_abs_err=err))
     log("timing-done", s=f"{time.perf_counter() - t0:.2f}")
     return rows_out
 
@@ -3827,7 +3849,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
 
     facts = phase_facts(torch, build)
-    phase_build(build)
+    built = phase_build(build)
     max_err = phase_kernel_parity(torch, wf, rng, dev)
     numpy_err = phase_numpy_parity(torch, wf, dev)
     l2_err = phase_l2_parity(torch, pl2, dev)
@@ -3866,6 +3888,7 @@ def main(argv=None) -> int:
         examples = phase_examples(torch, wf, pl2, dispatch, dev, cpu_runs,
                                   lm_init)
     timing = phase_timing(torch, wf, rng, dev, full["sizes"])
+    max_err = max([max_err] + [r["max_abs_err"] for r in timing])
     l2_rows = phase_l2_timing(torch, pl2, build, dev, emb["x"], emb["y"])
 
     main_row = timing[1]  # the main path's largest dispatch
@@ -3888,6 +3911,11 @@ def main(argv=None) -> int:
                              "sharded": sharded["launches"]["wavefront"],
                              "examples": examples["launches"]["wavefront"]},
         "schedule_rows": dict(wf.SCHEDULE_ROWS),
+        "block_schedule": {
+            "ptxas": {k: v for k, v in built["ptxas"].items()
+                      if k.startswith("block<")},
+            "smem_bytes_64x64x2": wf.smem_bytes("dfd", 64, 64, 2)[0],
+            "ms_64x64x2": timing[-2]["ms"], "ms_few_long": timing[-1]["ms"]},
         "max_abs_err": max_err, "max_abs_err_numpy": numpy_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -270,8 +270,9 @@ def _library() -> ctypes.CDLL:
 
 def smem_bytes(mode: str, Lx: int, Ly: int, d: int) -> Tuple[int, int]:
     """(dynamic shared memory bytes of one block, rows per block; 0 rows:
-    one block per row) that the launcher chooses for a dispatch of widths
-    ``Lx``, ``Ly`` and ``d``: the kernel's on-chip fact beside its cost
+    the block schedule, one warp per row) that the launcher chooses for a
+    dispatch of widths ``Lx``, ``Ly`` and ``d``: the kernel's on-chip fact
+    beside its cost
     model (``roofline/costs.wavefront_cost``).  The library is built from
     ``csrc/wavefront.cu`` on first use."""
     rows = ctypes.c_int(0)
@@ -280,10 +281,29 @@ def smem_bytes(mode: str, Lx: int, Ly: int, d: int) -> Tuple[int, int]:
     return nbytes, rows.value
 
 
+def root_mismatches(device: torch.device) -> int:
+    """How many of the 2**31 - 2**23 + 1 non-negative f32 (0 to +inf) the
+    block schedule's branch-free root (``clamped_root`` in
+    ``csrc/wavefront.cu``) maps to other bits than IEEE ``sqrtf`` clamped
+    at ``BIG`` does, counted on the card ``device``: 0 on a correct build.
+    The block schedule's float distances rest on it."""
+    lib = _library()
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    rc = lib.wavefront_root_mismatches(
+        ctypes.c_void_p(bad.data_ptr()), device.index
+        if device.index is not None else torch.cuda.current_device(),
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"root check launch failed ({rc}: "
+                           f"{lib.wavefront_error_string(rc).decode()})")
+    return int(bad.item())
+
+
 def schedule(mode: str, Lx: int, Ly: int, d: int) -> str:
-    """``"rows"`` (one thread a row) or ``"block"`` (one block a row): the
-    launcher's choice for a dispatch of widths ``Lx``, ``Ly`` and ``d``,
-    from :func:`smem_bytes`'s rows per block; cached per shape."""
+    """``"rows"`` (one thread a row) or ``"block"`` (one warp a row, for
+    rows of 32 points or more): the launcher's choice for a dispatch of
+    widths ``Lx``, ``Ly`` and ``d``, from :func:`smem_bytes`'s rows per
+    block; cached per shape."""
     key = (mode, Lx, Ly, d)
     got = _SCHEDULES.get(key)
     if got is None:

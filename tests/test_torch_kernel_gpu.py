@@ -79,6 +79,100 @@ def test_cuda_kernel_matches_plain_version(cuda_device, mode, B, Lx, Ly, d,
     assert got[1].any() and (~got[1]).any()
 
 
+def eps_kinds(exact):
+    """ε of each kind a row can meet: 0, each row's distance, one ulp under
+    it, ``BIG`` and ``+inf`` (``pruned`` is exercised on both sides)."""
+    under = torch.nextafter(exact, torch.full_like(exact, -float("inf")))
+    return {"zero": torch.zeros_like(exact), "at": exact, "under": under,
+            "big": torch.full_like(exact, wf.BIG),
+            "inf": torch.full_like(exact, float("inf"))}
+
+
+def assert_same_as_plain(mode, ops, eps):
+    """The kernel's ``(dist, hit, pruned)`` against the plain version's:
+    masks equal, distances bit-equal for ``lev`` and within the float
+    tolerance otherwise."""
+    got = wf.wavefront_cuda(*ops, eps, mode=mode)
+    want = wf.wavefront_torch(*ops, eps, mode=mode)
+    torch.cuda.synchronize()
+    if mode == "lev":
+        assert torch.equal(got[0], want[0])
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nonzero", [False, True])
+@pytest.mark.parametrize("mode", ["dtw", "erp", "dfd", "lev"])
+@pytest.mark.parametrize("B,Lx,Ly,d", [
+    (64, 32, 32, 2), (64, 33, 30, 2), (64, 64, 64, 2), (64, 40, 70, 2),
+    (64, 48, 40, 8)])
+def test_cuda_block_schedule_matches_plain_version(cuda_device, mode, B, Lx,
+                                                   Ly, d, nonzero):
+    """The block schedule (one warp a row, rows of 32 points or more) at
+    shapes that end its strips on one lane (32) and two (33), the 64-point
+    rows, rows shorter than their columns and numpy's eight running sums
+    (d = 8), ragged, against the plain version at every kind of ε."""
+    d = 1 if mode == "lev" else d
+    assert wf.schedule(mode, Lx, Ly, d) == "block"
+    rng = np.random.default_rng(1000 * Lx + Ly)
+    ops = _ragged(mode == "lev", B, Lx, Ly, rng, d, cuda_device, nonzero)
+    inf = torch.full((B,), float("inf"), device=cuda_device)
+    exact = wf.wavefront_torch(*ops, inf, mode=mode)[0]
+    for kind, eps in eps_kinds(exact).items():
+        got = assert_same_as_plain(mode, ops, eps)
+        if kind in ("at", "big", "inf"):
+            assert bool(got[1].all()) and not bool(got[2].any()), kind
+        elif kind == "under":
+            assert not bool(got[1].any()), kind
+        else:
+            assert bool(got[2].any()), kind
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("mode", ["dtw", "erp", "dfd"])
+def test_block_schedule_roots_at_the_ends_of_the_range(cuda_device, mode,
+                                                       d):
+    """The block schedule roots each cost without a branch: squared
+    differences that are 0, subnormal, below 2**-101 and overflowing to
+    +inf give the plain version's distances bit for bit, and numpy's
+    where numpy's are finite (its lane clamps no cost at ``BIG``)."""
+    from repro_torch.distances import np_backend
+    rng = np.random.default_rng(17 + d)
+    B, Lx, Ly = 48, 40, 36
+    xs = rng.normal(size=(B, Lx, d)).astype(np.float32)
+    ys = np.zeros((B, Ly, d), np.float32)
+    for b in range(B):
+        scale = [0.0, 1e-44, 1e-30, 3e-23, 1e-19, 1.0, 1e19, 3e19][b % 8]
+        ys[b] = xs[b, :Ly] + (scale * rng.normal(size=(Ly, d))).astype(
+            np.float32)
+    ys[::5] = xs[::5, :Ly]  # exact zeros
+    xs[7::8] *= np.float32(1e20)  # squares past FLT_MAX
+    lens = np.stack([rng.integers(30, Lx + 1, B), rng.integers(30, Ly + 1,
+                                                              B)], 1)
+    want = np_backend.batch_alignment(xs, ys, mode, lens[:, 0], lens[:, 1])
+    ops = [torch.as_tensor(a, device=cuda_device) for a in (xs, ys)]
+    ops.append(torch.as_tensor(lens.astype(np.int32), device=cuda_device))
+    inf = torch.full((B,), float("inf"), device=cuda_device)
+    assert wf.schedule(mode, Lx, Ly, d) == "block"
+    got = wf.wavefront_cuda(*ops, inf, mode=mode)[0].cpu().numpy()
+    plain = wf.wavefront_torch(*ops, inf, mode=mode)[0].cpu().numpy()
+    np.testing.assert_array_equal(got, plain)
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(got[finite], want[finite])
+    assert (want < 1e-15).any() and (got == np.float32(wf.BIG)).any()
+
+
+@pytest.mark.gpu
+def test_block_schedule_root_equals_sqrtf_on_every_input(cuda_device):
+    """The block schedule's branch-free root gives IEEE ``sqrtf``'s bits,
+    clamped at ``BIG``, on every non-negative f32 from 0 to +inf."""
+    assert wf.root_mismatches(cuda_device) == 0
+
+
 @pytest.mark.gpu
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     xs, ys, lens = _ragged(True, 4, 6, 6, np.random.default_rng(0), 1,
@@ -224,11 +318,11 @@ NUMPY_DS = [1, 2, 3, 7, 8, 9, 16, 60, 130, 300]
 def test_cuda_kernel_bit_equal_to_numpy(cuda_device, mode, d):
     """The kernel's float modes equal the numpy lane
     (``np_backend.batch_alignment``) bit for bit in both schedules (a
-    thread a row, a block a row), with seeded content past the lengths; ε
+    thread a row, a warp a row), with seeded content past the lengths; ε
     at each row's distance is a hit, one ulp under it a miss."""
     from repro_torch.distances import np_backend
     rng = np.random.default_rng(300 + d)
-    for B, Lx, Ly in ((96, 13, 9), (6, 40, 36)):
+    for B, Lx, Ly in ((96, 13, 9), (6, 40, 36), (12, 64, 64), (10, 33, 70)):
         ops = _ragged(False, B, Lx, Ly, rng, d, cuda_device, nonzero=True)
         xs, ys, lens = (t.cpu().numpy() for t in ops)
         want = np_backend.batch_alignment(xs, ys, mode, lens[:, 0],
