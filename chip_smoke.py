@@ -1360,9 +1360,7 @@ def ring_check(torch, dev, flat, qs, eps, reps=200) -> dict:
     cost = costs.kernel_cost_report("ring_filter", dp, arrs["mem_id"], qs_t,
                                     data, n_need=gn)
     nv = arrs["mem_id"].numel()
-    Pm, M = flat.members.shape
-    res = dict(Q=Q, P=P, Nv=nv, N=N, n_need=gn, filter_slots=Q * nv,
-               padded_slots=Q * Pm * M, ms=ms,
+    res = dict(Q=Q, P=P, Nv=nv, N=N, n_need=gn, filter_slots=Q * nv, ms=ms,
                **{k + "_ms": v for k, v in per.items()},
                launched_ms=launched, plain_ms=plain_ms,
                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
@@ -1576,12 +1574,10 @@ def phase_fleet_full(torch, wf, dispatch, args, dev) -> dict:
         extra = {}
         if via == "fleet-oneshot":
             merged = fleet._merged[1][0]
-            P, M = merged.members.shape
-            # the ring filter visits Q x (valid pairs) slots, where the
-            # padded broadcast it replaced touched Q x P x M
-            slots = len(qs) * int((merged.members >= 0).sum())
-            extra = dict(Q=len(qs), P=P, M=M, filter_slots=slots,
-                         padded_slots=len(qs) * P * M, peak_bytes=peak,
+            # the ring filter visits Q x (pairs) slots
+            slots = len(qs) * len(merged.mem_id)
+            extra = dict(Q=len(qs), P=merged.n_pivots, filter_slots=slots,
+                         peak_bytes=peak,
                          survivors=ds["member_evals"] - ds0["member_evals"])
             row.update(oneshot_s=s, oneshot_kernel_s=ks,
                        oneshot_evals=rs.stats["device_evals"],

@@ -27,12 +27,14 @@ kernel on the card, its plain torch version on the CPU) over the real
 survivor count, in the same order, after one read of that count; nothing
 is retried, and ``stats["capacity"]`` still reports the capacity the
 reference's doubling rule ends at, computed from the survivor count.
-``stats["filter_slots"]`` counts the slots the filter visited and
-``stats["padded_slots"]`` the ``Q * P * M`` the padded broadcast touches.
+``stats["filter_slots"]`` counts the slots the filter visited.
 
-The FlatNet's arrays (the member lists as CSR pairs, and envelopes) are
-uploaded to a device once per FlatNet version and kept there
-(:meth:`FlatNet.device_arrays`); ``append`` and ``remove`` drop the copy.
+A FlatNet holds its member lists as those pairs on the host too
+(``mem_pivot``/``mem_id``/``mem_dist``); the reference's padded ``(P, M)``
+lists exist only in the snapshot file (``serve/snapshot.py`` converts
+them).  The arrays are uploaded to a device once per
+FlatNet version and kept there (:meth:`FlatNet.device_arrays`); ``append``
+and ``remove`` drop the copy.
 The fleet version merges the alive shards' FlatNets (:func:`merge_flats`)
 into ONE device query; results are exact unions, since shards partition
 the windows.
@@ -70,12 +72,14 @@ from repro_torch.kernels.wavefront import lev_operand
 
 @dataclasses.dataclass
 class FlatNet:
-    """Flattened (pivot -> members) arrays; member lists padded to one
-    width."""
+    """Flattened (pivot -> members) arrays; the member lists as CSR pairs,
+    pivot-major (``mem_pivot`` ascending), each pivot's run in its stored
+    order."""
     pivots: np.ndarray          # (P, l[, d]) pivot windows
     pivot_radius: np.ndarray    # (P,) exact derived-subtree radius
-    members: np.ndarray         # (P, M) window ids, -1 padding
-    member_dist: np.ndarray     # (P, M) exact delta(pivot, member)
+    mem_pivot: np.ndarray       # (Nv,) pivot row of each pair
+    mem_id: np.ndarray          # (Nv,) window id of each pair
+    mem_dist: np.ndarray        # (Nv,) exact delta(pivot, member), f32
     data: np.ndarray            # (N, l[, d]) all windows
     n_pivots: int
     dist_name: str
@@ -91,34 +95,28 @@ class FlatNet:
     _on_device: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False)
 
-    @property
-    def eval_width(self) -> int:
-        return self.members.shape[1]
-
     def device_arrays(self, dev: torch.device) -> Dict[str, torch.Tensor]:
         """The query operands on ``dev``, uploaded once per FlatNet version
         (``append``/``remove`` drop the copy): pivots, radii (f32), the
-        valid (pivot, member) pairs in CSR order (``mem_pivot`` and
-        ``mem_id`` int32, ``mem_dist`` f32; pivot-major, each list in its
-        stored order, so the pairs come in the order ``nonzero`` gives over
-        the padded lists), the window database and, when present, the
-        envelopes.  Token ids go up as the kernel takes them (int32,
-        range-checked here), so no query converts or checks them again."""
+        (pivot, member) pairs as they are held (``mem_pivot`` and
+        ``mem_id`` int32, ``mem_dist`` f32), the window database and, when
+        present, the envelopes.  Token ids go up as the kernel takes them
+        (int32, range-checked here), so no query converts or checks them
+        again."""
         if self._on_device is not None and self._on_device[0] == dev:
             return self._on_device[1]
         if len(self.data) > np.iinfo(np.int32).max:
             raise ValueError(f"{len(self.data)} windows: the device query "
                              "takes window ids of int32")
         rows = _operand_of(self.dist_name)
-        pair_p, pair_m = np.nonzero(self.members >= 0)
         arrs = {"pivots": rows(self.pivots),
                 "pradius": torch.as_tensor(
                     np.asarray(self.pivot_radius, np.float32)),
-                "mem_pivot": torch.as_tensor(pair_p.astype(np.int32)),
-                "mem_id": torch.as_tensor(
-                    self.members[pair_p, pair_m].astype(np.int32)),
-                "mem_dist": torch.as_tensor(np.asarray(
-                    self.member_dist[pair_p, pair_m], np.float32)),
+                "mem_pivot": torch.as_tensor(
+                    self.mem_pivot.astype(np.int32)),
+                "mem_id": torch.as_tensor(self.mem_id.astype(np.int32)),
+                "mem_dist": torch.as_tensor(
+                    np.asarray(self.mem_dist, np.float32)),
                 "data": rows(self.data)}
         if self.envelopes is not None:
             arrs["env_lo"] = torch.as_tensor(self.envelopes.lo)
@@ -135,9 +133,10 @@ class FlatNet:
         ``pivot_rows[k]`` at distance ``member_dists[k]``) in place.
 
         ``new_data`` extends the window database when the ids are fresh
-        (online inserts after flattening); member lists re-pad to the new
-        width and pivot radii grow monotonically, so a refreshed net never
-        needs a full re-flatten to stay queryable on device.
+        (online inserts after flattening); each new pair goes to the end of
+        its pivot's run, in input order, and pivot radii grow
+        monotonically, so a refreshed net never needs a full re-flatten to
+        stay queryable on device.
         """
         self._on_device = None
         if new_data is not None and len(new_data):
@@ -146,31 +145,19 @@ class FlatNet:
             if self.envelopes is not None:  # incremental envelope refresh
                 self.envelopes.extend(bounds.build_envelopes(new_data))
         pivot_rows = np.asarray(pivot_rows, np.int64)
-        member_ids = np.asarray(member_ids, np.int64)
         member_dists = np.asarray(member_dists, np.float32)
-        counts = (self.members >= 0).sum(axis=1)
-        need = counts.copy()
-        for p in pivot_rows:
-            need[p] += 1
-        grow = int(need.max() - self.members.shape[1])
-        if grow > 0:
-            P = self.members.shape[0]
-            self.members = np.concatenate(
-                [self.members, np.full((P, grow), -1, np.int64)], axis=1)
-            self.member_dist = np.concatenate(
-                [self.member_dist, np.zeros((P, grow), np.float32)], axis=1)
-        for p, w, d in zip(pivot_rows, member_ids, member_dists):
-            k = int(counts[p])
-            self.members[p, k] = w
-            self.member_dist[p, k] = d
-            counts[p] += 1
-            if d > self.pivot_radius[p]:
-                self.pivot_radius[p] = d
+        # ``np.insert`` places values at one index in their given order
+        at = np.searchsorted(self.mem_pivot, pivot_rows, side="right")
+        self.mem_pivot = np.insert(self.mem_pivot, at, pivot_rows)
+        self.mem_id = np.insert(self.mem_id, at,
+                                np.asarray(member_ids, np.int64))
+        self.mem_dist = np.insert(self.mem_dist, at, member_dists)
+        np.maximum.at(self.pivot_radius, pivot_rows, member_dists)
         return self
 
     def remove(self, member_ids: Sequence[int]) -> "FlatNet":
-        """Mask windows out of every member list in place — zero distance
-        evaluations.
+        """Drop windows' pairs in place, keeping the order of the rest —
+        zero distance evaluations.
 
         The elastic layer calls this when rendezvous resharding moves
         windows *out* of a shard: the departed ids can never be reported as
@@ -185,14 +172,10 @@ class FlatNet:
         if ids.size == 0:
             return self
         self._on_device = None
-        drop = np.isin(self.members, ids) & (self.members >= 0)
-        masked = np.where(drop, -1, self.members)
-        # re-compact each row (live entries left, padding right): `append`
-        # writes at the first slot past the live count, so holes must not
-        # hide live members behind them
-        order = np.argsort(masked < 0, axis=1, kind="stable")
-        self.members = np.take_along_axis(masked, order, axis=1)
-        self.member_dist = np.take_along_axis(self.member_dist, order, axis=1)
+        keep = ~np.isin(self.mem_id, ids)
+        self.mem_pivot = self.mem_pivot[keep]
+        self.mem_id = self.mem_id[keep]
+        self.mem_dist = self.mem_dist[keep]
         return self
 
 
@@ -244,36 +227,23 @@ def flatten_net(net: ReferenceNet, pivot_level: Optional[int] = None
     pidx = {p: i for i, p in enumerate(pivot_ids)}
     for x, p in pivot_of.items():
         members[pidx[p]].append(x)
-    M = max(len(m) for m in members)
     P = len(pivot_ids)
-    mem = np.full((P, M), -1, np.int64)
-    mdist = np.zeros((P, M), np.float32)
-    # reuse stored link distances for direct children; stack the rest into
-    # one batched dispatch (no per-pivot host loop)
-    eval_l: List[int] = []
-    eval_r: List[int] = []
-    eval_at: List[Tuple[int, int]] = []
-    for i, (pid, ms) in enumerate(zip(pivot_ids, members)):
-        mem[i, :len(ms)] = ms
-        pn = net.nodes[pid]
-        link = {c: pn.child_dist[k] for k, c in enumerate(pn.children)}
-        for j, x in enumerate(ms):
-            if x == pid:
-                mdist[i, j] = 0.0
-            elif x in link:
-                mdist[i, j] = link[x]
-            else:
-                eval_l.append(pid)
-                eval_r.append(x)
-                eval_at.append((i, j))
-    if eval_l:
-        ds = net.counter.eval_pairs(eval_l, eval_r)
-        for (i, j), d in zip(eval_at, ds):
-            mdist[i, j] = float(d)
-    valid = mem >= 0
-    radius = np.where(valid.any(axis=1),
-                      np.where(valid, mdist, 0.0).max(axis=1),
-                      0.0).astype(np.float32)
+    mem_pivot = np.repeat(np.arange(P), [len(ms) for ms in members])
+    mem_id = np.asarray([x for ms in members for x in ms], np.int64)
+    # reuse stored link distances for direct children (0 for the pivot
+    # itself); stack the rest into one batched dispatch (no per-pivot host
+    # loop)
+    link = [{**dict(zip(net.nodes[p].children, net.nodes[p].child_dist)),
+             p: 0.0} for p in pivot_ids]
+    stored = [link[i].get(x) for i, ms in enumerate(members) for x in ms]
+    mem_dist = np.asarray([0.0 if d is None else d for d in stored],
+                          np.float32)
+    need = np.asarray([k for k, d in enumerate(stored) if d is None], int)
+    if need.size:
+        mem_dist[need] = net.counter.eval_pairs(
+            np.asarray(pivot_ids)[mem_pivot[need]], mem_id[need])
+    radius = np.zeros(P, np.float32)
+    np.maximum.at(radius, mem_pivot, mem_dist)
     # one stacked envelope pass over the whole window database (reused by
     # fleet rounds and the device query path instead of per-query rebuilds)
     envs = bounds.build_envelopes(net.data) \
@@ -281,7 +251,7 @@ def flatten_net(net: ReferenceNet, pivot_level: Optional[int] = None
     return FlatNet(
         pivots=np.asarray(net.data[pivot_ids]),
         pivot_radius=radius,
-        members=mem, member_dist=mdist,
+        mem_pivot=mem_pivot, mem_id=mem_id, mem_dist=mem_dist,
         data=np.asarray(net.data), n_pivots=P, dist_name=net.dist.name,
         pivot_ids=np.asarray(pivot_ids, np.int64),
         envelopes=envs)
@@ -353,7 +323,6 @@ def device_range_query(flat: FlatNet, qs: np.ndarray, eps: float, *,
         with spans.span("oneshot.wait"):
             hits = hits.cpu()
             n_pruned = int(n_pruned)
-    P, M = flat.members.shape
     stats = {"pivot_evals": Q * flat.n_pivots,
              "member_evals": n_evals,
              "fused_pruned": n_pruned,
@@ -361,8 +330,7 @@ def device_range_query(flat: FlatNet, qs: np.ndarray, eps: float, *,
              "lb_pruned": lb_pruned,
              "capacity": final_capacity(capacity, n_need),
              "total_evals": Q * flat.n_pivots + n_evals,
-             "filter_slots": Q * arrs["mem_id"].numel(),
-             "padded_slots": Q * P * M}
+             "filter_slots": Q * arrs["mem_id"].numel()}
     return hits.numpy(), stats
 
 
@@ -479,28 +447,27 @@ def host_reference_hits(flat: FlatNet, qs: np.ndarray, eps: float
 def merge_flats(flats: Sequence[FlatNet]) -> Tuple[FlatNet, List[int]]:
     """Stack per-shard FlatNets into ONE flat net over the union.
 
-    Shards partition the windows, so concatenating pivot rows (member ids
-    offset into the concatenated data array, member widths padded to the
-    fleet maximum) yields a FlatNet whose single device query equals the
-    union of the per-shard queries.  Pivot identities survive the merge —
-    ``pivot_ids`` concatenate with the same per-shard offsets, so post-merge
-    :meth:`FlatNet.append` refreshes keep working — when every input carries
-    them (otherwise the merged net's are None).  Returns the merged net plus
-    each shard's column offset into the merged hit mask.  The merged net is
-    a new object, so it uploads its own device arrays on first use.
+    Shards partition the windows, so concatenating pivot rows and pairs
+    (each shard's pair pivots offset by the pivot rows before it, its
+    member ids by the windows before it) yields a FlatNet whose single
+    device query equals the union of the per-shard queries.  Pivot
+    identities survive the merge — ``pivot_ids`` concatenate with the same
+    per-shard offsets, so post-merge :meth:`FlatNet.append` refreshes keep
+    working — when every input carries them (otherwise the merged net's
+    are None).  Returns the merged net plus each shard's column offset into
+    the merged hit mask.  The merged net is a new object, so it uploads its
+    own device arrays on first use.
     """
     assert flats, "nothing to merge"
     assert len({f.dist_name for f in flats}) == 1, "mixed distances"
-    M = max(f.members.shape[1] for f in flats)
     offsets: List[int] = []
-    mems, mdists, off = [], [], 0
+    mem_pivot, mem_id, off, row = [], [], 0, 0
     for f in flats:
         offsets.append(off)
-        pad = M - f.members.shape[1]
-        mem = np.pad(f.members, ((0, 0), (0, pad)), constant_values=-1)
-        mems.append(np.where(mem >= 0, mem + off, -1))
-        mdists.append(np.pad(f.member_dist, ((0, 0), (0, pad))))
+        mem_pivot.append(f.mem_pivot + row)
+        mem_id.append(f.mem_id + off)
         off += len(f.data)
+        row += len(f.pivots)
     pivot_ids = None
     if all(f.pivot_ids is not None for f in flats):
         pivot_ids = np.concatenate(
@@ -517,8 +484,9 @@ def merge_flats(flats: Sequence[FlatNet]) -> Tuple[FlatNet, List[int]]:
     return FlatNet(
         pivots=np.concatenate([f.pivots for f in flats]),
         pivot_radius=np.concatenate([f.pivot_radius for f in flats]),
-        members=np.concatenate(mems),
-        member_dist=np.concatenate(mdists),
+        mem_pivot=np.concatenate(mem_pivot),
+        mem_id=np.concatenate(mem_id),
+        mem_dist=np.concatenate([f.mem_dist for f in flats]),
         data=np.concatenate([f.data for f in flats]),
         n_pivots=sum(f.n_pivots for f in flats),
         dist_name=flats[0].dist_name, pivot_ids=pivot_ids,
@@ -575,8 +543,7 @@ def fleet_range_query(flats: List[FlatNet], qs: np.ndarray, eps: float,
                  "fleet_lb_rows": s.get("lb_rows", 0),
                  "fleet_lb_pruned": s.get("lb_pruned", 0),
                  "fleet_total_evals": s["total_evals"],
-                 "fleet_filter_slots": s["filter_slots"],
-                 "fleet_padded_slots": s["padded_slots"]}
+                 "fleet_filter_slots": s["filter_slots"]}
         for (i, f), off in zip(alive, offsets):
             results[i] = hits[:, off:off + len(f.data)]
             stats[i] = dict(fleet)

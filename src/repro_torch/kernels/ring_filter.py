@@ -11,11 +11,11 @@ Free accepts go straight into the ``(Q, N)`` hit mask; survivors are
 compacted, in the order ``torch.nonzero`` gives over ``(q, pivot, slot)``,
 into rows the wavefront kernel takes.
 
-The filter visits the real (pivot, member) pairs only: the flattened net
-stores them once per version in CSR order (``FlatNet.device_arrays``:
-``mem_pivot``, ``mem_id``, ``mem_dist``, pivot-major, each list in its
-stored order), ``Q * Nv`` slots where a ``(Q, P, M)`` broadcast over lists
-padded to the widest one touched ``Q * P * M``.  It runs in two calls, so
+The filter visits the real (pivot, member) pairs only, ``Q * Nv`` slots:
+the flattened net holds its member lists as those pairs in CSR order
+(``FlatNet``'s ``mem_pivot``, ``mem_id``, ``mem_dist``, pivot-major, each
+list in its stored order) and uploads them once per version
+(``FlatNet.device_arrays``).  It runs in two calls, so
 the caller can read the survivor count (its one blocking read) in between:
 
 * :func:`ring_filter` (pass 1): the verdicts, free hits into the mask, and

@@ -4,10 +4,11 @@ A live :class:`~repro_torch.launch.elastic.ElasticIndex` is, per shard,
 three structures the reference net's O(n) layout keeps cheap to dump: the
 host node graph (``ReferenceNet.nodes`` — id/level/radius scalars plus
 ragged child/parent adjacency), the device
-:class:`~repro_torch.core.distributed.FlatNet` (dense pivot/member arrays
-+ precomputed envelopes), and the ``gids`` map from local rows to global
-window ids.  This module serializes all of it to ONE ``.npz`` +
-``meta.json`` per snapshot through the training stack's
+:class:`~repro_torch.core.distributed.FlatNet` (pivot arrays, the member
+lists as CSR pairs, precomputed envelopes; the file holds the reference's
+padded ``(P, M)`` lists in their place), and the ``gids`` map from local
+rows to global window ids.  This module serializes all of it to ONE
+``.npz`` + ``meta.json`` per snapshot through the training stack's
 :class:`~repro_torch.train.checkpoint.CheckpointManager` — inheriting its
 atomic tmp-dir + fsync + rename write, ``latest`` pointer,
 background-thread async save, and retention — and restores a
@@ -35,7 +36,7 @@ from __future__ import annotations
 
 import json
 import pathlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -46,9 +47,38 @@ _REF_BACKEND = {"kernel": "pallas", "torch": "jax", "numpy": "numpy"}
 _PORT_BACKEND = {v: k for k, v in _REF_BACKEND.items()}
 
 
+def padded_lists(flat) -> Tuple[np.ndarray, np.ndarray]:
+    """``flat``'s member lists in the reference's layout, as the snapshot
+    file holds them: ``members`` ``(P, M)`` window ids (int64, -1 padding)
+    and ``member_dist`` ``(P, M)`` (f32, 0 padding), each list left-aligned
+    in its stored order and ``M`` the longest list."""
+    P = len(flat.pivots)
+    counts = np.bincount(flat.mem_pivot, minlength=P)
+    start = np.cumsum(counts) - counts
+    slot = np.arange(len(flat.mem_id)) - start[flat.mem_pivot]
+    M = int(counts.max(initial=0))
+    members = np.full((P, M), -1, np.int64)
+    member_dist = np.zeros((P, M), np.float32)
+    members[flat.mem_pivot, slot] = flat.mem_id
+    member_dist[flat.mem_pivot, slot] = flat.mem_dist
+    return members, member_dist
+
+
+def pairs_of_lists(members: np.ndarray, member_dist: np.ndarray
+                   ) -> Dict[str, np.ndarray]:
+    """The reference's padded ``(P, M)`` lists (-1 padding, from a snapshot
+    file) as FlatNet's pairs: ``{mem_pivot, mem_id, mem_dist}``, row-major
+    over the valid slots."""
+    pp, mm = np.nonzero(members >= 0)
+    return {"mem_pivot": pp.astype(np.int64),
+            "mem_id": members[pp, mm].astype(np.int64),
+            "mem_dist": np.asarray(member_dist[pp, mm], np.float32)}
+
+
 def _shard_arrays(wi: int, shard) -> Dict[str, np.ndarray]:
     """Dump one shard's net + flat + gids as flat npz-ready arrays."""
     net, flat = shard.net, shard.flat
+    members, member_dist = padded_lists(flat)
     node_ids = sorted(net.nodes)
     child_cnt, parent_cnt = [], []
     child_ids, child_dist, child_level, parent_ids = [], [], [], []
@@ -77,8 +107,8 @@ def _shard_arrays(wi: int, shard) -> Dict[str, np.ndarray]:
         p + "parent_ids": np.array(parent_ids, np.int64),
         p + "pivots": np.array(flat.pivots),
         p + "pivot_radius": np.array(flat.pivot_radius),
-        p + "members": np.array(flat.members),
-        p + "member_dist": np.array(flat.member_dist),
+        p + "members": members,
+        p + "member_dist": member_dist,
         p + "pivot_ids": np.array(flat.pivot_ids, np.int64),
     }
     if flat.envelopes is not None:
@@ -253,8 +283,8 @@ class FleetSnapshotManager:
                                    arrays[p + "env_lens"])
             flat = FlatNet(pivots=arrays[p + "pivots"],
                            pivot_radius=arrays[p + "pivot_radius"],
-                           members=arrays[p + "members"],
-                           member_dist=arrays[p + "member_dist"],
+                           **pairs_of_lists(arrays[p + "members"],
+                                            arrays[p + "member_dist"]),
                            data=counter.data,
                            n_pivots=int(sm["n_pivots"]),
                            dist_name=dist.name,

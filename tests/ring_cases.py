@@ -3,9 +3,10 @@ on the card, and the padded ``(Q, P, M)`` broadcast it replaced, as the
 oracle of its verdicts and of their order.  Imports only torch and numpy.
 
 A case is ``(dp, pradius, members, member_dist, eps)``: ``members`` ``(P,
-M)`` window ids padded with -1 (live entries left, as a FlatNet keeps
-them), one list far wider than the rest, as the flattened fleets of the
-benchmark hold one huge pivot per shard.
+M)`` window ids padded with -1 (live entries left, as the reference's
+FlatNet and the snapshot file keep them), one list far wider than the
+rest, as the flattened fleets of the benchmark hold one huge pivot per
+shard.
 """
 
 import numpy as np

@@ -29,6 +29,8 @@ from repro_torch.data.synthetic import (  # noqa: E402
 from repro_torch.distances import get  # noqa: E402
 from repro_torch.kernels import registry as port_registry  # noqa: E402
 from repro_torch.kernels import ring_filter  # noqa: E402
+from repro_torch.launch.elastic import ElasticIndex  # noqa: E402
+from repro_torch.serve import FleetSnapshotManager, snapshot  # noqa: E402
 
 import ring_cases  # noqa: E402
 
@@ -66,34 +68,36 @@ def flats():
     return out
 
 
-#: the stats keys the port adds to the reference's: the slots the ring
-#: filter visited and those of the padded broadcast it replaced
-SLOT_KEYS = ("filter_slots", "padded_slots")
+#: the stats key the port adds to the reference's: the slots the ring
+#: filter visited
+SLOT_KEYS = ("filter_slots",)
 
 
 def _assert_stats(got, want, flat, Q, prefix=""):
-    """Every key of the reference's stats equal, and the port's two slot
-    counters exact: ``Q`` times the valid pairs, ``Q * P * M``."""
+    """Every key of the reference's stats equal, and the port's slot
+    counter exact: ``Q`` times the pairs."""
     assert {k: got[k] for k in want} == want
     assert set(got) == set(want) | {prefix + k for k in SLOT_KEYS}
-    P, M = flat.members.shape
-    assert got[prefix + "filter_slots"] == Q * int((flat.members >= 0).sum())
-    assert got[prefix + "padded_slots"] == Q * P * M
+    assert got[prefix + "filter_slots"] == Q * len(flat.mem_id)
 
 
 def _assert_flat_equal(got, want, rtol):
-    np.testing.assert_array_equal(got.members, want.members)
+    """The port's pairs are the reference's padded lists' valid entries
+    in their order (read off by ``ring_cases.csr``); the other arrays
+    equal."""
+    pv, ids, md = ring_cases.csr(want.members, want.member_dist)
+    np.testing.assert_array_equal(got.mem_pivot, pv)
+    np.testing.assert_array_equal(got.mem_id, ids)
     np.testing.assert_array_equal(got.pivot_ids, want.pivot_ids)
     np.testing.assert_array_equal(got.pivots, want.pivots)
     np.testing.assert_array_equal(got.data, want.data)
     assert got.n_pivots == want.n_pivots and got.dist_name == want.dist_name
     if rtol:
-        np.testing.assert_allclose(got.member_dist, want.member_dist,
-                                   rtol=rtol)
+        np.testing.assert_allclose(got.mem_dist, md, rtol=rtol)
         np.testing.assert_allclose(got.pivot_radius, want.pivot_radius,
                                    rtol=rtol)
     else:
-        np.testing.assert_array_equal(got.member_dist, want.member_dist)
+        np.testing.assert_array_equal(got.mem_dist, md)
         np.testing.assert_array_equal(got.pivot_radius, want.pivot_radius)
     assert (got.envelopes is None) == (want.envelopes is None)
     if got.envelopes is not None:
@@ -158,11 +162,14 @@ def _toy_flat(mod):
     """A 1-pivot FlatNet whose FIRST member slot needs an exact eval at
     eps=2.5 (the reference's positional-validity regression case)."""
     data = np.asarray([[3.0, 0.0], [4.0, 0.0], [1.0, 0.0]], np.float32)
+    ids = np.asarray([1, 0, 2], np.int64)
+    ds = np.asarray([1.0, 0.0, 2.0], np.float32)
+    lists = (dict(mem_pivot=np.zeros(3, np.int64), mem_id=ids, mem_dist=ds)
+             if mod is dist_mod else
+             dict(members=ids[None], member_dist=ds[None]))
     return mod.FlatNet(
         pivots=data[[0]], pivot_radius=np.asarray([2.0], np.float32),
-        members=np.asarray([[1, 0, 2]], np.int64),
-        member_dist=np.asarray([[1.0, 0.0, 2.0]], np.float32),
-        data=data, n_pivots=1, dist_name="euclidean",
+        **lists, data=data, n_pivots=1, dist_name="euclidean",
         pivot_ids=np.asarray([0], np.int64))
 
 
@@ -283,28 +290,53 @@ def _port_flat(name, data, eps_prime=1.0):
         counter=CountedDistance(get(name), data, device="cpu")).build())
 
 
-@pytest.mark.parametrize("change", ["merged", "appended", "removed"])
-def test_device_arrays_hold_the_valid_pairs_in_order(change):
-    """The CSR pairs ``device_arrays`` uploads are the padded lists' valid
-    entries, pivot-major and each list in its stored order, also after an
-    ``append`` (new ids at the end of their lists) and a ``remove`` (the
-    ids gone, the lists recompacted)."""
+@pytest.mark.parametrize("change", ["merged", "appended", "removed",
+                                    "restored"])
+def test_device_arrays_hold_the_valid_pairs_in_order(change, tmp_path):
+    """The CSR pairs ``device_arrays`` uploads are the reference's padded
+    lists' valid entries, pivot-major and each list in its stored order,
+    after a merge, an ``append`` (new ids at the end of their lists) and a
+    ``remove`` (the ids gone, the rest in their order); a fleet snapshot,
+    saved and restored, uploads the pairs of the fleet it was taken
+    from."""
+    cpu = torch.device("cpu")
     data = proteins(200, seed=11)
-    parts = np.array_split(np.arange(180), 3)
-    flat = dist_mod.merge_flats([_port_flat("levenshtein", data[ids])
-                                 for ids in parts])[0]
-    flat.device_arrays(torch.device("cpu"))
     new = np.arange(180, 200)
     gone = [3, 77, 150, 151]
-    if change == "appended":
-        rows = [int(k) % flat.n_pivots for k in range(len(new))]
-        flat.append(rows, new, np.linspace(0.0, 5.0, len(new)),
-                    new_data=data[180:])
-    elif change == "removed":
-        flat.remove(gone)
-    assert (flat._on_device is None) == (change != "merged")
-    arrs = flat.device_arrays(torch.device("cpu"))
-    pv, ids, md = ring_cases.csr(flat.members, flat.member_dist)
+    if change == "restored":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            fleet = ElasticIndex("levenshtein", data[:180], ["a", "b", "c"],
+                                 device="cpu")
+        snap = FleetSnapshotManager(tmp_path)
+        snap.save(fleet, block=True)
+        back = snap.restore(device="cpu")
+        was = dist_mod.merge_flats([fleet.shards[w].flat
+                                    for w in fleet.workers])[0]
+        want = tuple(was.device_arrays(cpu)[k].numpy()
+                     for k in ("mem_pivot", "mem_id", "mem_dist"))
+        flat = dist_mod.merge_flats([back.shards[w].flat
+                                     for w in back.workers])[0]
+    else:
+        nets = [_nets("levenshtein", data[ids])
+                for ids in np.array_split(np.arange(180), 3)]
+        flat = dist_mod.merge_flats([dist_mod.flatten_net(port)
+                                     for port, _ in nets])[0]
+        ref = ref_dist.merge_flats([ref_dist.flatten_net(refn)
+                                    for _, refn in nets])[0]
+        flat.device_arrays(cpu)
+        if change == "appended":
+            rows = [int(k) % flat.n_pivots for k in range(len(new))]
+            for f in (flat, ref):
+                f.append(rows, new, np.linspace(0.0, 5.0, len(new)),
+                         new_data=data[180:])
+        elif change == "removed":
+            flat.remove(gone)
+            ref.remove(gone)
+        assert (flat._on_device is None) == (change != "merged")
+        want = ring_cases.csr(ref.members, ref.member_dist)
+    arrs = flat.device_arrays(cpu)
+    pv, ids, md = want
     assert arrs["mem_pivot"].dtype == arrs["mem_id"].dtype == torch.int32
     assert arrs["mem_dist"].dtype == arrs["pradius"].dtype == torch.float32
     np.testing.assert_array_equal(arrs["mem_pivot"].numpy(), pv)
@@ -379,18 +411,15 @@ def test_device_range_query_every_distance(name):
     data = gen(80, seed=4)
     flat = _port_flat("frechet" if name == "dtw" else name, data)
     if name == "dtw":
-        valid = flat.members >= 0
-        pp, mm = np.nonzero(valid)
-        ds = port_registry.get("dtw").batch(
-            data[flat.pivot_ids[pp]], data[flat.members[pp, mm]],
-            device="cpu").dist.numpy()
-        md = np.zeros_like(flat.member_dist)
-        md[pp, mm] = ds
+        md = port_registry.get("dtw").batch(
+            data[flat.pivot_ids[flat.mem_pivot]], data[flat.mem_id],
+            device="cpu").dist.numpy().astype(np.float32)
+        radius = np.zeros(flat.n_pivots, np.float32)
+        np.maximum.at(radius, flat.mem_pivot, md)
         flat = dist_mod.FlatNet(
-            pivots=flat.pivots, pivot_radius=np.where(
-                valid, md, 0.0).max(axis=1).astype(np.float32),
-            members=flat.members, member_dist=md, data=flat.data,
-            n_pivots=flat.n_pivots, dist_name="dtw",
+            pivots=flat.pivots, pivot_radius=radius,
+            mem_pivot=flat.mem_pivot, mem_id=flat.mem_id, mem_dist=md,
+            data=flat.data, n_pivots=flat.n_pivots, dist_name="dtw",
             pivot_ids=flat.pivot_ids)
     rng = np.random.default_rng(2)
     qs = _queries_of(name, data, 5, rng)
@@ -402,9 +431,10 @@ def test_device_range_query_every_distance(name):
     eps = float(ds[len(ds) // 20])      # about 5 % of the pairs hit
     hits, stats = dist_mod.device_range_query(flat, qs, eps, capacity=16,
                                               device="cpu")
+    members, member_dist = snapshot.padded_lists(flat)
     want_flat = ref_dist.FlatNet(
         pivots=flat.pivots, pivot_radius=flat.pivot_radius,
-        members=flat.members, member_dist=flat.member_dist, data=flat.data,
+        members=members, member_dist=member_dist, data=flat.data,
         n_pivots=flat.n_pivots, dist_name=name, pivot_ids=flat.pivot_ids)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
@@ -457,9 +487,10 @@ def test_eps_no_f32_holds(flats, name, bound, frac):
         assert hits1[q, ids[j]]
     assert bool((v.order == slot).any()) == bool(lo <= e32 < hi)
     hits, stats = dist_mod.device_range_query(flat, qs, eps, device="cpu")
+    members, member_dist = snapshot.padded_lists(flat)
     want_flat = ref_dist.FlatNet(
         pivots=flat.pivots, pivot_radius=flat.pivot_radius,
-        members=flat.members, member_dist=flat.member_dist, data=flat.data,
+        members=members, member_dist=member_dist, data=flat.data,
         n_pivots=flat.n_pivots, dist_name=name, pivot_ids=flat.pivot_ids)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)

@@ -35,6 +35,8 @@ from repro_torch.data.synthetic import (  # noqa: E402
 from repro_torch.distances import get  # noqa: E402
 from repro_torch.retrieval import RetrievalConfig, Retriever  # noqa: E402
 
+import ring_cases  # noqa: E402
+
 #: distance -> (windows, eps_prime, range sizes), as the paper's Figs. 8/10
 CASES = {
     "levenshtein": (lambda: proteins(150, seed=4), 1.0, (1.0, 2.0, 4.0)),
@@ -194,9 +196,11 @@ def test_covertree_flat_net_matches_reference_device_query(scan_exec):
                                           **kw), seqs).matcher.flat_net()
     want = ref.Retriever.build(ref.RetrievalConfig("levenshtein", **kw),
                                seqs).matcher.flat_net()
-    np.testing.assert_array_equal(got.members, want.members)
+    pv, ids, md = ring_cases.csr(want.members, want.member_dist)
+    np.testing.assert_array_equal(got.mem_pivot, pv)
+    np.testing.assert_array_equal(got.mem_id, ids)
     np.testing.assert_array_equal(got.pivot_ids, want.pivot_ids)
-    np.testing.assert_array_equal(got.member_dist, want.member_dist)
+    np.testing.assert_array_equal(got.mem_dist, md)
     qs = got.data[[1, 9, 33]]
     for eps in (1.0, 2.0):
         hits, stats = dist_mod.device_range_query(got, qs, eps,

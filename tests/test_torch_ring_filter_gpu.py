@@ -127,20 +127,18 @@ def _merged(name, n=1200, seed=8):
                            ).build_batched(max_cohort=256)
         flats.append(dist_mod.flatten_net(net))
     flat = dist_mod.merge_flats(flats)[0]
-    valid = flat.members >= 0
-    assert flat.members.shape[1] > 8 * valid.sum(axis=1).mean()
+    runs = np.bincount(flat.mem_pivot, minlength=flat.n_pivots)
+    assert runs.max() > 8 * runs.mean()
     if name == "dtw":
-        pp, mm = np.nonzero(valid)
-        ds = registry.get("dtw").batch(
-            data[flat.pivot_ids[pp]], data[flat.members[pp, mm]],
-            device="cpu").dist.numpy()
-        md = np.zeros_like(flat.member_dist)
-        md[pp, mm] = ds
+        md = registry.get("dtw").batch(
+            data[flat.pivot_ids[flat.mem_pivot]], data[flat.mem_id],
+            device="cpu").dist.numpy().astype(np.float32)
+        radius = np.zeros(flat.n_pivots, np.float32)
+        np.maximum.at(radius, flat.mem_pivot, md)
         flat = dist_mod.FlatNet(
-            pivots=flat.pivots, pivot_radius=np.where(
-                valid, md, 0.0).max(axis=1).astype(np.float32),
-            members=flat.members, member_dist=md, data=flat.data,
-            n_pivots=flat.n_pivots, dist_name="dtw",
+            pivots=flat.pivots, pivot_radius=radius,
+            mem_pivot=flat.mem_pivot, mem_id=flat.mem_id, mem_dist=md,
+            data=flat.data, n_pivots=flat.n_pivots, dist_name="dtw",
             pivot_ids=flat.pivot_ids)
     return data, flat
 
@@ -229,14 +227,12 @@ def test_merged_fleet_ring_on_the_card(cuda_device, name):
 def test_device_range_query_at_the_benchmark_eps(cuda_device, name, eps):
     """The benchmark's cells' ``eps`` (2 over proteins under Levenshtein,
     24 over trajectories under ERP) on a merged fleet, 64 queries: hits
-    and every stats key, the slot counters among them, equal on the card
+    and every stats key, the slot counter among them, equal on the card
     and on the CPU, with one filter launch."""
     data, flat = _merged(name)
     qs = _queries(data, 64, np.random.default_rng(5))
     got, st = _query_both(flat, qs, eps, cuda_device)
-    valid = flat.members >= 0
-    assert st["filter_slots"] == 64 * int(valid.sum())
-    assert st["padded_slots"] == 64 * valid.size
+    assert st["filter_slots"] == 64 * len(flat.mem_id)
     assert st["member_evals"] > 0 and got.any()
 
 
@@ -247,7 +243,7 @@ def test_filter_after_remove_and_append(cuda_device):
     data, flat = _merged("levenshtein")
     qs = _queries(data, 16, np.random.default_rng(6))
     _query_both(flat, qs, 2.0, cuda_device)
-    live = flat.members[flat.members >= 0]
+    live = flat.mem_id
     gone = live[live % 7 == 0]
     flat.remove(gone)
     ids = flat.device_arrays(cuda_device)["mem_id"].cpu().numpy()

@@ -37,6 +37,8 @@ from repro_torch.data.synthetic import proteins  # noqa: E402
 from repro_torch.launch.elastic import ElasticIndex  # noqa: E402
 from repro_torch.train import checkpoint  # noqa: E402
 
+import ring_cases  # noqa: E402
+
 WORKERS = ["a", "b", "c"]
 
 
@@ -101,8 +103,16 @@ def _hits(fleet, qs):
     return fleet.range_query_batch(list(qs), 2.0)
 
 
+def _assert_pairs(pivot, ids, dist, members, member_dist):
+    """``(pivot, ids, dist)`` are the valid entries of the reference's
+    padded lists, in their order."""
+    for g, w in zip((pivot, ids, dist), ring_cases.csr(members,
+                                                       member_dist)):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_snapshot_round_trip_spends_nothing(tmp_path):
-    data, port, _ = _fleets()
+    data, port, refr = _fleets()
     qs = data[[3, 40, 77]]
     want = _hits(port, qs)
     counts = port.eval_count()
@@ -117,7 +127,10 @@ def test_snapshot_round_trip_spends_nothing(tmp_path):
     for w in WORKERS:
         a, b = port.shards[w], clone.shards[w]
         np.testing.assert_array_equal(a.gids, b.gids)
-        np.testing.assert_array_equal(a.flat.members, b.flat.members)
+        want = refr.shards[w].flat
+        for got in (a.flat, b.flat):
+            _assert_pairs(got.mem_pivot, got.mem_id, got.mem_dist,
+                          want.members, want.member_dist)
     assert snap.restore(device="cpu").eval_count() == counts  # latest
 
 
@@ -138,6 +151,13 @@ def test_snapshots_cross_restore_between_packages(tmp_path, writer):
     assert clone.eval_count() == port.eval_count() == refr.eval_count()
     assert _hits(clone, qs) == want
     assert clone.range_query_batch(list(qs), 2.0, mode="oneshot") == want
+    # the file's padded lists hold the reference's pairs, whoever wrote it
+    with np.load(next(tmp_path.glob("step_*")) / "state.npz") as z:
+        for wi, w in enumerate(WORKERS):
+            want_flat = refr.shards[w].flat
+            _assert_pairs(*ring_cases.csr(z[f"s{wi}/members"],
+                                          z[f"s{wi}/member_dist"]),
+                          want_flat.members, want_flat.member_dist)
 
 
 def test_checkpoint_keys_and_files_are_the_references(tmp_path):
